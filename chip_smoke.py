@@ -4,23 +4,38 @@
 
 Phases (one line each, a non-zero exit on any failure):
   device    card name and power limit (nvidia-smi), torch and CUDA versions
-  build     nvcc builds both CUDA kernels from src/repro_torch/kernels/csrc
+  build     nvcc builds the three CUDA kernels from
+            src/repro_torch/kernels/csrc, one nvcc each, all at once
   kernels   each kernel against its plain PyTorch version on the card
-            (bf16 rtol = atol = 2e-2; f32 1e-4, sums run in another order),
-            then timed against the plain version, its bound and
-            torch's scaled_dot_product_attention on the same work
+            (attention: bf16 rtol = atol = 2e-2, f32 1e-4, sums run in
+            another order; wkv6 against the sequential scan, bf16 and f32
+            inputs alike: out rtol = atol = 3e-4, state rtol 3e-4 atol 3e-3,
+            the JAX package's own tolerances), then timed against the plain
+            version, its bound and, for attention, torch's
+            scaled_dot_product_attention on the same work
   model     full-width qwen2-1.5b (random weights from a seed): prefill_chunk
             then decode steps through the kernels and through the plain
             attention, logits compared (stated tolerance below)
+  model_rwkv  the same for full-width rwkv6-7b: prefill then decode steps
+            through the wkv6 kernel (each call also checked against the
+            plain scan on the same live inputs: within the kernel
+            tolerances, or twice the plain chunked form's error there) and
+            through the plain WKV; the logits are held to the larger of
+            the dense bound and twice the floor between two plain forms
   executor  two workers of ClusterRealExecutors sharing weights on the card:
             multi-chunk, 2-row, left-padded and mixed iterations, a
             migration, decode on both workers
+  executor_rwkv  the same for rwkv6-7b: replayed multi-chunk prefill, a
+            request's final chunk riding on another's decode, a migration,
+            decode on both workers; a slot outside the decode batch must
+            keep its state bit for bit
   profile   torch.profiler over a prefill, a decode and a mixed iteration:
             wall and device time, idle share, attention vs matmul time
   serve     the user entry point, repro_torch.launch.serve, on full-width
-            qwen2-1.5b under the tropical policy (the main path); the
-            kernels' launch counts are zeroed just before it and read just
-            after
+            qwen2-1.5b under the tropical policy (the dense main path)
+  serve_rwkv  the same on full-width rwkv6-7b (the rwkv main path)
+Each serve phase zeroes the kernels' launch counts just before it and reads
+them just after.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -50,7 +65,7 @@ import numpy as np  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.request import Request, SLOSpec  # noqa: E402
 from repro_torch.kernels import (build, chunked_prefill, ops,  # noqa: E402
-                                 paged_attention, ref)
+                                 paged_attention, ref, wkv6)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.models.layers import decode_page_size  # noqa: E402
@@ -61,10 +76,22 @@ DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-# model phase: relative L2 error of the logits, kernels vs plain attention
+# wkv6 against wkv_scan (tests/test_wkv6_kernel.py's tolerances)
+WKV_OUT_TOL = (3e-4, 3e-4)           # (rtol, atol)
+WKV_STATE_TOL = (3e-4, 3e-3)
+# model phases: relative L2 error of the logits, kernels vs plain versions
 MODEL_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}
+# rwkv6-7b at full width parts its logits by about 1.5e-2 (f32) and 6e-2
+# (bf16) between two plain WKV forms that differ only in the order of their
+# f32 sums (chunked vs sequential scan; NVIDIA H100 80GB HBM3, 700 W), so
+# the model phase holds the kernel's logits to twice that floor, measured
+# in the same run, and holds every wkv6 call of the run to the kernel
+# tolerances against the plain version on the same live inputs
+FLOOR_FACTOR = 2.0
 ARCH = "qwen2-1.5b"
+RWKV = "rwkv6-7b"
 MAX_LEN = 1024
+LIBS = (paged_attention.LIB, chunked_prefill.LIB, wkv6.LIB)
 
 
 def say(phase: str, **kv) -> None:
@@ -116,16 +143,19 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build.build_all([paged_attention.LIB, chunked_prefill.LIB])
+    build.build_all(LIBS)
     say("build", seconds=f"{time.perf_counter() - t0:.2f}")
-    for lib in (paged_attention.LIB, chunked_prefill.LIB):
+    for lib in LIBS:
         name, spill = "?", ""
         for line in lib.build_log.splitlines():       # nvcc -Xptxas -v
             entry = re.search(r"Compiling entry function '(\S+)'", line)
             if entry:
-                t = re.search(r"I(f|13__nv_bfloat16)Li(\d)E", entry.group(1))
-                name = f"<{'f32' if t.group(1) == 'f' else 'bf16'}, " \
-                    f"col_pairs={t.group(2)}>" if t else entry.group(1)[:48]
+                t = re.search(r"I(f|13__nv_bfloat16)(?:Li(\d)E)?E",
+                              entry.group(1))
+                pairs = f", col_pairs={t.group(2)}" if t and t.group(2) \
+                    else ""
+                name = f"<{'f32' if t.group(1) == 'f' else 'bf16'}{pairs}>" \
+                    if t else entry.group(1)[:48]
             elif "spill" in line:
                 spill = line.strip()
             elif "registers" in line:
@@ -239,6 +269,55 @@ def _sdpa_decode(args):
     return lambda: f(qt, k, v, attn_mask=mask, enable_gqa=True)
 
 
+def _wkv_case(gen, b, t, dtype, h=64, decay="model", s0_scale=0.0):
+    """r, k, v ~ N(0, 1) in ``dtype``; the decay as the model draws it at
+    init ("model": decay_base -6 plus its LoRA term, std about 0.05), with
+    the JAX test's spread ("spread": N * 2 - 4), or all at the model's clip
+    ("clip": 0.5, the strongest decay it allows, which stretches the chunked
+    form's exponents the most); w = exp(-exp(decay)), u ~ N(0, 0.5^2) and
+    s0 ~ N(0, s0_scale^2) in f32."""
+    r, k, v = (_rand(gen, (b, t, h, 64), dtype) for _ in range(3))
+    z = torch.randn((b, t, h, 64), generator=gen, device=DEV)
+    dec = {"model": -6.0 + 0.05 * z, "spread": z * 2 - 4,
+           "clip": torch.full_like(z, 0.5)}[decay]
+    w = torch.exp(-torch.exp(dec.clamp(-20.0, 0.5)))
+    u = torch.randn((h, 64), generator=gen, device=DEV) * 0.5
+    s0 = torch.randn((b, h, 64, 64), generator=gen, device=DEV) * s0_scale
+    return r, k, v, w, u, s0
+
+
+def _compare_wkv(name, args) -> float:
+    """The kernel against the sequential scan on the same inputs; returns
+    the largest absolute error of out and of the state."""
+    out, st = wkv6.wkv6(*args)
+    want, s_want = ref.wkv_scan(*args)
+    torch.cuda.synchronize()
+    check(torch.isfinite(out).all().item() and torch.isfinite(st).all().item(),
+          f"{name}: non-finite")
+    errs = []
+    for got, exp, (rtol, atol), what in ((out, want, WKV_OUT_TOL, "out"),
+                                         (st, s_want, WKV_STATE_TOL, "state")):
+        err = (got - exp).abs()
+        bad = err > atol + rtol * exp.abs()
+        check(not bad.any().item(),
+              f"{name}: {int(bad.sum())} {what} elements beyond rtol={rtol} "
+              f"atol={atol}, max abs err {err.max().item():.3e}")
+        errs.append(err.max().item())
+    return max(errs)
+
+
+def _wkv_work(args):
+    """(bytes, flops) of the recurrence on these inputs: r, k, v at their
+    dtype, w and out in f32, u, s0 and sT once; 4 * D * D f32 operations
+    per (token, head): r^T S and the decayed rank-1 update."""
+    r = args[0]
+    b, t, h, d = r.shape
+    n = b * t * h * d
+    byts = 3 * n * r.element_size() + 2 * n * 4 + h * d * 4 \
+        + 2 * b * h * d * d * 4
+    return byts, 4 * d * d * b * t * h
+
+
 def phase_kernels(card: str) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(0)
     pre_k, pre_p = (chunked_prefill.chunked_prefill_attention,
@@ -273,6 +352,23 @@ def phase_kernels(card: str) -> dict:
             say("kernels", kernel="paged_attention", case=name, dtype=tag,
                 max_abs_err=f"{e:.3e}")
 
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        cases = {
+            "b1_t512_h64": _wkv_case(gen, 1, 512, dtype),
+            "decode_b8_t1_s0": _wkv_case(gen, 8, 1, dtype, s0_scale=1.0),
+            "ragged_t100": _wkv_case(gen, 2, 100, dtype, h=8,
+                                     decay="spread", s0_scale=0.1),
+            "t544_clip": _wkv_case(gen, 1, 544, dtype, h=8, decay="clip",
+                                   s0_scale=0.1),
+            "t130_s0": _wkv_case(gen, 2, 130, dtype, h=8, decay="spread",
+                                 s0_scale=1.0),
+        }
+        for name, args in cases.items():
+            e = _compare_wkv(f"wkv6/{name}/{tag}", args)
+            say("kernels", kernel="wkv6", case=name, dtype=tag,
+                max_abs_err=f"{e:.3e}")
+
     # timing at the main path's shapes, bf16
     dtype = torch.bfloat16
     records = {}
@@ -303,14 +399,38 @@ def phase_kernels(card: str) -> dict:
         plain_ms=time_ms(lambda: dec_p(*dargs, **dkw)),
         library_ms=time_ms(_sdpa_decode(dargs)),
         **_bound(byts, flops, dtype))
+    # wkv6: a decode step of 8 slots (printed), then the prefill record
+    for label, args, mode in (
+            ("decode", _wkv_case(gen, 8, 1, dtype, s0_scale=1.0), "decode"),
+            ("prefill", _wkv_case(gen, 1, 512, dtype), "chunked")):
+        byts, flops = _wkv_work(args)
+        b, t, h, _ = args[0].shape
+        rec = dict(
+            name="wkv6", route="cuda",
+            source="src/repro_torch/kernels/csrc/wkv6.cu",
+            replaces="src/repro/kernels/wkv6.py:89",
+            shape=f"B={b} T={t} H={h} D=64 bf16 r/k/v, f32 w/u/s0",
+            max_abs_err=_compare_wkv(f"wkv6/timed_{label}", args),
+            ms=time_ms(lambda: wkv6.wkv6(*args)),
+            plain_ms=time_ms(lambda: ref.wkv6_ref(*args, mode)),
+            library_ms=None, **_bound(byts, flops, torch.float32))
+        if label == "decode":
+            say("kernels", timed="wkv6", shape=repr(rec["shape"]),
+                ms=f"{rec['ms']:.4f}", plain_ms=f"{rec['plain_ms']:.4f}",
+                bound_ms=f"{rec['bound_ms']:.5f}", bound_by=rec["bound_by"],
+                library_ms="none", card=repr(card))
+        else:
+            records["wkv6"] = rec
     for r in records.values():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         say("kernels", timed=r["name"], shape=repr(r["shape"]),
             ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
-            library_ms=f"{r['library_ms']:.4f}", card=repr(card))
-    say("kernels", kernels="chunked_prefill,paged_attention",
+            library_ms=lib, card=repr(card))
+    say("kernels", kernels="chunked_prefill,paged_attention,wkv6",
         launches_so_far={"chunked_prefill": chunked_prefill.launches,
-                         "paged_attention": paged_attention.launches})
+                         "paged_attention": paged_attention.launches,
+                         "wkv6": wkv6.launches})
     return records
 
 
@@ -321,20 +441,28 @@ def _bound(byts: int, flops: int, dtype) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-class _PlainAttention:
-    """Inside this block the model's attention runs the plain versions on
-    the card (a comparison only; the port's ops never do this)."""
+class _PlainKernels:
+    """Inside this block the model's attention and WKV run the plain
+    versions on the card (a comparison only; the port's ops never do
+    this). ``wkv`` is the plain WKV: by default the form the JAX model
+    picks."""
+
+    def __init__(self, wkv=ref.wkv6_ref):
+        self.wkv = wkv
 
     def __enter__(self):
-        self.saved = ops.paged_attention_op, ops.chunked_prefill_op
+        self.saved = (ops.paged_attention_op, ops.chunked_prefill_op,
+                      ops.wkv6_op)
         ops.paged_attention_op = lambda *a, softcap=None: \
             ref.paged_attention_ref(*a, softcap=softcap)
         ops.chunked_prefill_op = lambda *a, softcap=None, window=None: \
             ref.chunked_prefill_attention_ref(*a, softcap=softcap,
                                               window=window)
+        ops.wkv6_op = self.wkv
 
     def __exit__(self, *exc):
-        ops.paged_attention_op, ops.chunked_prefill_op = self.saved
+        (ops.paged_attention_op, ops.chunked_prefill_op,
+         ops.wkv6_op) = self.saved
 
 
 def phase_model() -> None:
@@ -370,12 +498,9 @@ def phase_model() -> None:
         check(chunked_prefill.launches > k0[0]
               and paged_attention.launches > k0[1],
               "model phase did not launch both kernels")
-        with _PlainAttention():
+        with _PlainKernels():
             want, _ = run(toks)                  # teacher-forced
-        rel = max(((g - w).norm() / w.norm()).item()
-                  for g, w in zip(got, want))
-        agree = float(np.mean([(g.argmax(-1) == w.argmax(-1)).float()
-                               .mean().item() for g, w in zip(got, want)]))
+        rel, agree = _logit_errors(got, want)
         finite = all(torch.isfinite(g).all().item() for g in got)
         say("model", arch=ARCH, dtype=str(dtype).split(".")[-1],
             params_b=f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f}",
@@ -385,6 +510,122 @@ def phase_model() -> None:
         check(rel <= MODEL_TOL[dtype],
               f"model phase: logits differ by {rel:.3e} (relative L2)")
         del params
+        torch.cuda.empty_cache()
+
+
+def _logit_errors(got, want):
+    """Largest relative L2 error over the steps, and the mean share of rows
+    whose argmax agrees."""
+    rel = max(((g - w).norm() / w.norm()).item() for g, w in zip(got, want))
+    agree = float(np.mean([(g.argmax(-1) == w.argmax(-1)).float().mean()
+                           .item() for g, w in zip(got, want)]))
+    return rel, agree
+
+
+def _tol_share(got, want) -> float:
+    """The largest error of (out, sT) against (out, sT) as a share of the
+    kernel tolerances (1.0 = at the tolerance)."""
+    return max(((g - w).abs() / (atol + rtol * w.abs())).max().item()
+               for g, w, (rtol, atol) in zip(got, want, (WKV_OUT_TOL,
+                                                         WKV_STATE_TOL)))
+
+
+class _ShadowWKV:
+    """Inside this block every wkv6 call of the model runs the kernel and,
+    on the same live inputs, the plain sequential scan and the plain form
+    the CPU route picks; the kernel's result goes on. ``worst`` and
+    ``plain_worst`` keep the largest share of the kernel tolerances by
+    which the kernel and the plain form part from the scan."""
+
+    def __enter__(self):
+        self.saved, self.calls = ops.wkv6_op, 0
+        self.worst = self.plain_worst = 0.0
+
+        def shadow(r, k, v, w, u, s0, mode):
+            got = self.saved(r, k, v, w, u, s0, mode)
+            want = ref.wkv_scan(r, k, v, w, u, s0)
+            self.worst = max(self.worst, _tol_share(got, want))
+            self.plain_worst = max(self.plain_worst, _tol_share(
+                ref.wkv6_ref(r, k, v, w, u, s0, mode), want))
+            self.calls += 1
+            return got
+
+        ops.wkv6_op = shadow
+        return self
+
+    def __exit__(self, *exc):
+        ops.wkv6_op = self.saved
+
+
+def phase_model_rwkv() -> None:
+    """Full-width rwkv6-7b, 2 rows: prefill of 256 tokens then 4 decode
+    steps through the wkv6 kernel (each call shadowed by the plain scan on
+    the same inputs), then again through the plain WKV and through the
+    plain sequential scan, teacher-forced with the kernel run's tokens. The
+    two plain runs give the floor the kernel's logits are held to."""
+    import dataclasses
+    base = get_config(RWKV)
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        api = model_api.build(cfg)
+        params = api.init(torch.Generator(device=DEV).manual_seed(0))
+        rng = np.random.default_rng(0)
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 256)),
+                                 dtype=torch.int32, device=DEV)
+        n = torch.full((2,), 256, dtype=torch.int32, device=DEV)
+
+        def run(tokens_in=None):
+            state = api.init_cache(2, MAX_LEN, DEV)
+            logits, state = api.prefill(params, state, prompt, n)
+            outs, toks = [logits], []
+            for step in range(4):
+                tok = logits.argmax(-1).to(torch.int32) if tokens_in is None \
+                    else tokens_in[step]
+                toks.append(tok)
+                logits, state = api.decode(params, state, tok, n)
+                outs.append(logits)
+            return outs, toks, state
+
+        k0 = wkv6.launches
+        with _ShadowWKV() as shadow:
+            got, toks, s_got = run()
+        launched = wkv6.launches - k0
+        check(launched == shadow.calls == 5 * cfg.num_layers,
+              f"model_rwkv: {launched} wkv6 launches, want "
+              f"{5 * cfg.num_layers}")
+        with _PlainKernels():
+            want, _, s_want = run(toks)
+        with _PlainKernels(lambda r, k, v, w, u, s0, mode:
+                           ref.wkv_scan(r, k, v, w, u, s0)):
+            scan, _, s_scan = run(toks)
+        rel, agree = _logit_errors(got, want)
+        floor, _ = _logit_errors(scan, want)
+
+        def state_rel(a, b):
+            return ((a["wkv"] - b["wkv"]).norm() / b["wkv"].norm()).item()
+
+        s_rel, s_floor = state_rel(s_got, s_want), state_rel(s_scan, s_want)
+        tol = max(MODEL_TOL[dtype], FLOOR_FACTOR * floor)
+        s_tol = max(MODEL_TOL[dtype], FLOOR_FACTOR * s_floor)
+        finite = all(torch.isfinite(g).all().item() for g in got)
+        say("model_rwkv", arch=RWKV, dtype=str(dtype).split(".")[-1],
+            params_b=f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f}",
+            logits_rel_l2=f"{rel:.3e}", plain_floor=f"{floor:.3e}",
+            tol=f"{tol:.3e}", wkv_state_rel_l2=f"{s_rel:.3e}",
+            state_floor=f"{s_floor:.3e}", argmax_agreement=f"{agree:.3f}",
+            wkv6_launches=launched,
+            worst_call_share_of_kernel_tol=f"{shadow.worst:.3f}",
+            plain_chunked_share=f"{shadow.plain_worst:.3f}")
+        check(finite, "model_rwkv: non-finite logits")
+        check(shadow.worst <= max(1.0, FLOOR_FACTOR * shadow.plain_worst),
+              f"model_rwkv: a wkv6 call is {shadow.worst:.2f}x the kernel "
+              f"tolerance from the plain scan (the plain chunked form "
+              f"{shadow.plain_worst:.2f}x)")
+        check(rel <= tol and s_rel <= s_tol,
+              f"model_rwkv: logits / state differ by {rel:.3e} / "
+              f"{s_rel:.3e} (relative L2; tolerances {tol:.3e} / "
+              f"{s_tol:.3e})")
+        del params, s_got, s_want, s_scan
         torch.cuda.empty_cache()
 
 
@@ -454,6 +695,114 @@ def phase_executor(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_executor_rwkv(card: str) -> None:
+    """Two rwkv6-7b workers sharing weights: prefill chunks replay the
+    prompt so far, b's final chunk rides on a's decode, a migration replays
+    b on worker 1, decode runs on both. b's state after the mixed iteration
+    must equal a fresh prefill of its prompt, and a decode of a alone must
+    leave b's slot bit for bit as it was. The mixed iteration and a decode
+    of two slots run under torch.profiler."""
+    cfg = get_config(RWKV)
+    execs = ClusterRealExecutors(cfg, 2, max_slots=4, max_len=MAX_LEN,
+                                 seed=0)
+    e0, e1 = execs.execs[0], execs.execs[1]
+    a, b, c = _req(0, 300), _req(1, 200), _req(2, 128)
+    mixed, outside = "b final 80 rides on decode a (mixed)", \
+        "decode a (b's slot outside the batch)"
+    steps = [
+        ("prefill a 256 (chunk 1 of 2)", e0, _plan(prefill=[(a, 256)])),
+        ("replay a 300 (final) + b 120", e0,
+         _plan(prefill=[(a, 44), (b, 120)])),
+        (mixed, e0, _plan(prefill=[(b, 80)], decode=[a])),
+        ("prefill c 128", e1, _plan(prefill=[(c, 128)])),
+        (outside, e0, _plan(decode=[a])),
+        ("decode a b", e0, _plan(decode=[a, b])),
+        ("migrate b 0->1", None, None),
+        ("decode b c", e1, _plan(decode=[b, c])),
+        ("decode a", e0, _plan(decode=[a])),
+        ("decode c b", e1, _plan(decode=[c, b])),
+    ]
+
+    def slot_state(ex, rid):
+        slot = ex.slot_of[rid]
+        return {k: v[:, slot].clone() for k, v in ex.cache.items()}
+
+    k0 = wkv6.launches
+    for label, ex, plan in steps:
+        before = slot_state(e0, b.rid) if label == outside else None
+        t0 = time.perf_counter()
+        if ex is None:
+            execs.migrate(b, 0, 1)
+        elif label in (mixed, "decode a b"):
+            wall, kernels = _profiled(lambda: ex.run_plan(plan))
+            dev = _device_ms(kernels)
+            wkv_ms = _device_ms(kernels, lambda key: "wkv6" in key)
+            gemm = _device_ms(kernels, _is_gemm)
+            say("executor_rwkv", profiled=repr(label), wall_ms=f"{wall:.3f}",
+                device_ms=f"{dev:.3f}" if dev else "not-measured",
+                idle_share=f"{1 - dev / wall:.3f}" if dev else "not-measured",
+                wkv6_ms=f"{wkv_ms:.3f}", gemm_ms=f"{gemm:.3f}",
+                other_ms=f"{dev - wkv_ms - gemm:.3f}",
+                device_kernels=sum(e.count for e in kernels), card=repr(card))
+        else:
+            ex.run_plan(plan)
+        if plan is not None:
+            for r, t in plan.prefill_parts:      # the engine's bookkeeping
+                r.prefilled_tokens += t
+        torch.cuda.synchronize()
+        say("executor_rwkv", step=repr(label),
+            ms=f"{(time.perf_counter() - t0) * 1e3:.3f}", card=repr(card))
+        if label == mixed:
+            fresh = e0.api.init_cache(1, MAX_LEN, DEV)
+            e0.api.prefill(e0.params, fresh, e0._tensor(e0.prompts[b.rid][None]),
+                           e0._tensor(np.asarray([b.prompt_len])))
+            got = slot_state(e0, b.rid)
+            rel = max(((got[k].float() - fresh[k][:, 0].float()).norm()
+                       / fresh[k].float().norm()).item() for k in got)
+            say("executor_rwkv", b_state_vs_fresh_prefill_rel_l2=f"{rel:.3e}")
+            check(rel <= 1e-3, f"executor_rwkv: b's state after the mixed "
+                  f"iteration differs from a fresh prefill by {rel:.3e}")
+        if before is not None:
+            after = slot_state(e0, b.rid)
+            check(all(torch.equal(before[k], after[k]) for k in before),
+                  "executor_rwkv: decoding a changed b's slot")
+    streams = {0: e0.generated[0], 1: e1.generated[1], 2: e1.generated[2]}
+    want = {0: 5, 1: 4, 2: 3}             # 1 from the prefill + decodes
+    for rid, toks in streams.items():
+        check(len(toks) == want[rid] and all(0 <= t < cfg.vocab_size
+                                             for t in toks),
+              f"executor_rwkv: rid {rid} stream {toks}")
+    check(wkv6.launches > k0, "executor_rwkv did not launch wkv6")
+    say("executor_rwkv", streams={k: len(v) for k, v in streams.items()},
+        wkv6_launches=wkv6.launches - k0, slot_outside_batch="unchanged")
+    del execs
+    torch.cuda.empty_cache()
+
+
+def _profiled(fn):
+    """Run ``fn`` under torch.profiler: (wall ms, the device kernels'
+    averaged events, largest device time first)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall, sorted(kernels, key=_device_us, reverse=True)
+
+
+def _device_ms(kernels, match=lambda key: True) -> float:
+    return sum(_device_us(e) for e in kernels if match(e.key)) / 1e3
+
+
+def _is_gemm(key: str) -> bool:
+    return any(s in key.lower() for s in ("gemm", "nvjet", "xmma", "cutlass"))
+
+
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -467,7 +816,6 @@ def phase_profile(card: str) -> None:
     ~260 tokens) and one mixed iteration (a 256-token chunk + 8 decodes),
     full width. Device time is the sum of kernel times (one stream, so
     kernels do not overlap); idle share = 1 - device / wall."""
-    from torch.profiler import ProfilerActivity, profile
     cfg = get_config(ARCH)
     execs = ClusterRealExecutors(cfg, 1, max_slots=16, max_len=MAX_LEN,
                                  seed=0)
@@ -485,58 +833,48 @@ def phase_profile(card: str) -> None:
                     r.prefilled_tokens += t
             plan = _plan(decode=reqs[:8]) if label == "decode 8" else \
                 _plan(prefill=[(reqs[8], 256)], decode=reqs[:8])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            ex.run_plan(plan)
-            wall = (time.perf_counter() - t0) * 1e3
+        wall, kernels = _profiled(lambda: ex.run_plan(plan))
         for r, t in plan.prefill_parts:
             r.prefilled_tokens += t
-        kernels = [e for e in prof.key_averages() if _device_us(e) > 0
-                   and e.device_type == torch.autograd.DeviceType.CUDA]
-        dev = sum(_device_us(e) for e in kernels) / 1e3
+        dev = _device_ms(kernels)
         n = sum(e.count for e in kernels)
-        attn = sum(_device_us(e) for e in kernels
-                   if "prefill_kernel" in e.key or "paged_attention_kernel"
-                   in e.key) / 1e3
-        gemm = sum(_device_us(e) for e in kernels
-                   if any(s in e.key.lower() for s in ("gemm", "nvjet", "xmma",
-                                                       "cutlass"))) / 1e3
+        attn = _device_ms(kernels, lambda key: "prefill_kernel" in key
+                          or "paged_attention_kernel" in key)
+        gemm = _device_ms(kernels, _is_gemm)
         say("profile", iteration=repr(label), wall_ms=f"{wall:.3f}",
             device_ms=f"{dev:.3f}" if dev else "not-measured",
             idle_share=f"{1 - dev / wall:.3f}" if dev else "not-measured",
             attention_kernels_ms=f"{attn:.3f}", gemm_ms=f"{gemm:.3f}",
             other_ms=f"{dev - attn - gemm:.3f}", device_kernels=n,
             card=repr(card))
-        top = sorted(kernels, key=_device_us, reverse=True)[:4]
-        for e in top:
+        for e in kernels[:4]:
             say("profile", kernel=repr(e.key[:70]), count=e.count,
                 device_ms=f"{_device_us(e) / 1e3:.3f}")
     del execs
     torch.cuda.empty_cache()
 
 
-def phase_serve(card: str) -> dict:
+def phase_serve(card: str, phase: str, arch: str, kernels: dict) -> dict:
+    """``repro_torch.launch.serve`` on full-width ``arch``; every kernel's
+    launch count is zeroed just before and ``kernels``' read just after."""
     # Explicit SLOs: the trace's default limits come from the copied
     # TPU-v5e cost model, which this card's iterations do not meet; with no
     # slack the toggle (rightly) rides no prefill on a decode batch, and the
     # run would not exercise the mixed iterations the paper is about.
-    argv = ["--mode", "real", "--arch", ARCH, "--size", "full",
+    argv = ["--mode", "real", "--arch", arch, "--size", "full",
             "--policy", "tropical", "--workers", "2", "--rate", "1.5",
             "--duration", "5", "--seed", "1", "--max-len", str(MAX_LEN),
             "--max-prompt", "512", "--max-output", "32",
             "--slo-classes", "chat:ttft=5,tpot=0.5", "--json"]
-    chunked_prefill.launches = 0
-    paged_attention.launches = 0
+    for module in (chunked_prefill, paged_attention, wkv6):
+        module.launches = 0
     t0 = time.perf_counter()
     row, backend = serve.run(argv)
     wall = time.perf_counter() - t0
-    launches = {"chunked_prefill": chunked_prefill.launches,
-                "paged_attention": paged_attention.launches}
+    launches = {name: module.launches for name, module in kernels.items()}
     generated = sum(len(g) for e in backend.execs.execs.values()
                     for g in e.generated.values())
-    say("serve", n_finished=row["n_finished"], n_total=row["n_total"],
+    say(phase, arch=arch, n_finished=row["n_finished"], n_total=row["n_total"],
         ttft_p90_s=f"{row['ttft_p90']:.4f}", tpot_p90_s=f"{row['tpot_p90']:.5f}",
         iterations=backend.iterations,
         mixed_iterations=backend.mixed_iterations,
@@ -544,14 +882,16 @@ def phase_serve(card: str) -> dict:
         busy_s=f"{backend.busy_seconds:.3f}",
         tokens_per_busy_s=f"{generated / backend.busy_seconds:.1f}",
         wall_s=f"{wall:.2f}", card=repr(card))
-    say("serve", launches=launches)
+    say(phase, launches=launches)
     check(row["n_total"] > 0 and row["n_finished"] == row["n_total"],
-          "serve: not every request finished")
-    check(backend.mixed_iterations >= 1, "serve: no mixed iteration")
+          f"{phase}: not every request finished")
+    check(backend.mixed_iterations >= 1, f"{phase}: no mixed iteration")
     check(all(n > 0 for n in launches.values()),
-          f"serve: a kernel was never launched on the main path {launches}")
+          f"{phase}: a kernel was never launched on the main path {launches}")
     for lat in (row["ttft_avg"], row["tpot_avg"]):
-        check(math.isfinite(lat) and lat > 0, "serve: bad latency")
+        check(math.isfinite(lat) and lat > 0, f"{phase}: bad latency")
+    del backend
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -560,9 +900,14 @@ def main() -> None:
     phase_build()
     records = phase_kernels(card)
     phase_model()
+    phase_model_rwkv()
     phase_executor(card)
+    phase_executor_rwkv(card)
     phase_profile(card)
-    launches = phase_serve(card)
+    launches = phase_serve(card, "serve", ARCH,
+                           {"chunked_prefill": chunked_prefill,
+                            "paged_attention": paged_attention})
+    launches |= phase_serve(card, "serve_rwkv", RWKV, {"wkv6": wkv6})
     kernels = []
     for name, r in records.items():
         kernels.append({k: r[k] for k in (

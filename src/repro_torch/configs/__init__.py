@@ -2,8 +2,8 @@
 
 Each module defines CONFIG (the full-size config) and SMOKE (a reduced
 same-family config for CPU tests), as in the JAX package. The port carries
-the dense configs without a sliding window; the other architectures come
-with their slices (ROADMAP.md, queue 1).
+the dense configs without a sliding window and rwkv6; the other
+architectures come with their slices (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ ARCHS = [
     "deepseek_7b",
     "stablelm_1_6b",
     "internlm20b",
+    "rwkv6_7b",
 ]
 
 _ALIASES = {
@@ -21,6 +22,7 @@ _ALIASES = {
     "deepseek-7b": "deepseek_7b",
     "stablelm-1.6b": "stablelm_1_6b",
     "internlm-20b": "internlm20b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 

@@ -1,2 +1,2 @@
-"""Attention kernels: Hopper CUDA kernels, their plain PyTorch versions
-and the dispatch between them (``ops``)."""
+"""Kernels (attention, WKV6): Hopper CUDA kernels, their plain PyTorch
+versions and the dispatch between them (``ops``)."""

@@ -1,4 +1,4 @@
-"""Dispatch for the attention kernels.
+"""Dispatch for the kernels (attention, WKV6).
 
 Tensors on the CPU go to the plain versions in ``kernels.ref``; tensors on
 a CUDA device go to the Hopper kernels, which launch or raise. Nothing
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import chunked_prefill, paged_attention, ref
+from repro_torch.kernels import chunked_prefill, paged_attention, ref, wkv6
 
 
 def _device_kind(name: str, *tensors: torch.Tensor) -> str:
@@ -37,7 +37,18 @@ def chunked_prefill_op(q, k_cache, v_cache, starts, softcap=None,
                                                      window=window)
 
 
-def wkv6_op(*args, **kwargs):
-    raise NotImplementedError(
-        "wkv6_op: the RWKV-6 kernel is not ported yet; it comes with the "
-        "rwkv6 slice (ROADMAP.md, queue 2)")
+def wkv6_op(r, k, v, w, u, s0, mode: str):
+    """The RWKV-6 recurrence over (B, T, H, D) inputs; ``mode`` is the
+    model's sequence mode, "decode" (T == 1) or "chunked". On the CPU it
+    picks the plain form the JAX model picks (``ref.wkv6_ref``); on the card
+    the kernel takes every T. Returns (out f32, sT f32)."""
+    if mode not in ("decode", "chunked"):
+        raise ValueError(f"wkv6_op: mode must be 'decode' or 'chunked', "
+                         f"got {mode!r}")
+    if mode == "decode" and r.shape[1] != 1:
+        raise ValueError(f"wkv6_op: decode takes one token, got T="
+                         f"{r.shape[1]}")
+    args = (r, k, v, w, u, s0)
+    if _device_kind("wkv6_op", *args) == "cpu":
+        return ref.wkv6_ref(*args, mode)
+    return wkv6.wkv6(*args)

@@ -13,18 +13,24 @@ Added flags:
   the caps on each request's prompt and output (the JAX real mode's fixed
   128 / 48 / 16).
 
-The copied scheduler still prices iterations with the TPU-v5e cost model
-(``perf/hardware.py::V5E``); under ``clock="wall"`` iteration durations
-are the card's. Sim mode, ``--trace-csv`` and ``--backend trace-replay``
-wait for a later slice (ROADMAP.md).
+The copied scheduler prices iterations with the TPU-v5e cost model
+(``perf/hardware.py::V5E``). On a CUDA device each worker is priced as one
+V5E whose ``hbm_bytes`` is the card's memory, so admission and KV/state
+capacity follow the card (a 7B model does not fit V5E's 16 GB); peaks,
+MFU and the interference γ stay V5E's until the calibration slice. On the
+CPU the workers are plain V5Es, as in the JAX real mode. Under
+``clock="wall"`` iteration durations are the device's. Sim mode,
+``--trace-csv`` and ``--backend trace-replay`` wait for a later slice
+(ROADMAP.md).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --mode real \
-      --arch qwen2-1.5b --size full --rate 2 --duration 6 --workers 2 --json
+      --arch rwkv6-7b --size full --rate 1.5 --duration 5 --workers 2 --json
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 from typing import Optional, Sequence
 
@@ -173,7 +179,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run under cProfile; print the top-25 "
                          "cumulative-time entries to stderr")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the model (default cuda)")
+                    help="torch device of the model (default cuda); on a "
+                         "CUDA device each worker is priced as a V5E with "
+                         "the card's memory (peaks, MFU and gamma stay "
+                         "V5E's until the calibration slice)")
     ap.add_argument("--size", default="smoke", choices=["smoke", "full"],
                     help="reduced config (as JAX real mode) or full width")
     ap.add_argument("--max-len", type=int, default=128,
@@ -212,7 +221,7 @@ def run(argv: Optional[Sequence[str]] = None):
     import torch
 
     from repro_torch.configs import get_config, get_smoke
-    from repro_torch.perf import WorkerSpec
+    from repro_torch.perf import V5E, WorkerSpec
     from repro_torch.serving.executor import ClusterRealExecutors
     from repro_torch.serving.simulator import build_cluster
     from repro_torch.workload import SCENARIOS, generate_trace, get_scenario
@@ -234,8 +243,13 @@ def run(argv: Optional[Sequence[str]] = None):
 
     cfg = get_config(args.arch) if args.size == "full" \
         else get_smoke(args.arch)
+    device = torch.device(args.device)
+    hw = V5E if device.type != "cuda" else dataclasses.replace(
+        V5E, hbm_bytes=float(torch.cuda.get_device_properties(
+            device).total_memory))
     sim, cost = build_cluster(
-        cfg, args.policy, n_workers=args.workers, worker_spec=WorkerSpec(tp=1),
+        cfg, args.policy, n_workers=args.workers,
+        worker_spec=WorkerSpec(tp=1, hw=hw),
         use_transfer_engine=not args.no_transfer_engine,
         ici_bw=args.ici_bw * 1e9 if args.ici_bw is not None else None,
         ici_links=args.ici_links, page_size=args.page_size,

@@ -1,21 +1,25 @@
 """Uniform model API, as in ``repro/models/api.py``, for the families the
 port carries so far: dense transformers without a sliding window or an
-fp8 KV cache.
+fp8 KV cache, and rwkv6.
 
   init(gen)                                  -> params (on gen.device)
-  init_cache(batch, max_len, device)         -> {"k","v"} (L,B,S,Hkv,D)
+  init_cache(batch, max_len, device)         -> dense: {"k","v"} (L,B,S,Hkv,D);
+                                                rwkv: the recurrent state
   prefill(params, cache, tokens, lengths)    -> (last_logits, cache)
   prefill_chunk(params, cache, chunk, starts, take=None) -> (logits, cache)
+                                                (None for rwkv: no
+                                                positional cache to extend)
   decode(params, cache, tokens, lengths)     -> (logits, cache)
 
-The cache is updated in place (see ``models.transformer``).
+The cache or state is updated in place (see ``models.transformer``,
+``models.rwkv6``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 from repro_torch.models.layers import ModelConfig
 
 
@@ -26,16 +30,24 @@ class ModelAPI:
     init_cache: Callable
     prefill: Callable
     decode: Callable
-    prefill_chunk: Callable
+    prefill_chunk: Optional[Callable] = None
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
+    if cfg.family == "rwkv":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda gen: rwkv6.init_lm(gen, cfg),
+            init_cache=lambda b, s, device: rwkv6.init_state(cfg, b, device),
+            prefill=lambda p, c, t, l: rwkv6.prefill(p, c, t, l, cfg),
+            decode=lambda p, c, t, l: rwkv6.decode(p, c, t, l, cfg),
+        )
     if (cfg.family != "dense" or cfg.sliding_window is not None
             or cfg.kv_cache_quant or cfg.use_post_norms):
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port serves dense models without a "
-            "sliding window, fp8 KV cache or post-norms so far; the other "
-            "families come with later slices (ROADMAP.md)")
+            "sliding window, fp8 KV cache or post-norms, and rwkv6, so far; "
+            "the other families come with later slices (ROADMAP.md)")
     return ModelAPI(
         cfg=cfg,
         init=lambda gen: transformer.init_lm(gen, cfg),

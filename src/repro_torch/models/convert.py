@@ -3,8 +3,10 @@
 ``params_from_jax`` takes the pytree of the JAX ``api.init(PRNGKey)`` as
 numpy arrays (``jax.tree.map(np.asarray, params)``), with its stacked
 leading layer axis, and returns the port's parameters: the same nested
-dict and the same layouts, as tensors of ``cfg.dtype`` on ``device``.
-With these, both packages compute the same function.
+dict and the same layouts, as tensors on ``device``. Each leaf keeps its
+own dtype (bf16 stays bf16, f32 stays f32: rwkv6 keeps ``decay_base`` and
+``bonus_u`` in f32 in a bf16 model). With these, both packages compute the
+same function.
 """
 from __future__ import annotations
 
@@ -13,17 +15,26 @@ import torch
 
 from repro_torch.models.layers import ModelConfig
 
-# the dense path's parameter tree; anything else is not ported yet
-_DENSE_KEYS = {
-    "embed": {"table", "unembed"},
-    "blocks": {"norm_attn", "attn", "norm_mlp", "mlp"},
-    "final_norm": {"scale", "bias"},
+# the parameter trees of the ported families; anything else is not ported
+_KEYS = {
+    "dense": {
+        "embed": {"table", "unembed"},
+        "blocks": {"norm_attn", "attn", "norm_mlp", "mlp"},
+        "final_norm": {"scale", "bias"},
+    },
+    "rwkv": {
+        "embed": {"table", "unembed"},
+        "blocks": {"norm_tm", "norm_cm", "tm", "cm"},
+        "final_norm": {"scale", "bias"},
+    },
 }
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def params_from_jax(np_params, cfg: ModelConfig, device) -> dict:
-    extra = set(np_params) - set(_DENSE_KEYS)
-    extra |= set(np_params.get("blocks", {})) - _DENSE_KEYS["blocks"]
+    keys = _KEYS.get(cfg.family, _KEYS["dense"])
+    extra = set(np_params) - set(keys)
+    extra |= set(np_params.get("blocks", {})) - keys["blocks"]
     if extra:
         raise NotImplementedError(
             f"params_from_jax: {sorted(extra)} belong to families not "
@@ -32,9 +43,10 @@ def params_from_jax(np_params, cfg: ModelConfig, device) -> dict:
     def conv(tree):
         if isinstance(tree, dict):
             return {k: conv(v) for k, v in tree.items()}
+        dtype = _DTYPES[np.asarray(tree).dtype.name]
         # via f32: numpy has no bf16 torch can read, and bf16 -> f32 -> bf16
         # is exact
         arr = np.array(tree, dtype=np.float32)
-        return torch.from_numpy(arr).to(device=device, dtype=cfg.dtype)
+        return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
     return conv(np_params)

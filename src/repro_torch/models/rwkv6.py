@@ -1,0 +1,218 @@
+"""RWKV-6 "Finch" (arXiv:2404.05892) in PyTorch: the attention-free LM.
+
+Counterpart of ``repro/models/rwkv6.py``. Time-mixing: token shift with
+data-dependent (LoRA-produced) interpolation, a data-dependent
+per-channel decay w_t, and the WKV recurrence
+
+    out_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T),   S_t = diag(w_t) S_{t-1} + k_t v_t^T
+
+per head of 64 (``kernels.ops.wkv6_op``: the Hopper kernel on the card, the
+JAX model's plain forms on the CPU). Channel-mixing: squared-ReLU MLP with
+token shift. Parameters keep the JAX pytree (a stacked leading layer axis;
+``decay_base`` and ``bonus_u`` stay f32 in any model dtype).
+
+State per layer (decode is O(1) in context length):
+  * ts_tm, ts_cm: (L, B, d) the last token's normed hidden for the shifts
+  * wkv:          (L, B, H, 64, 64) f32 recurrent state
+
+Entry points:
+  init_lm(gen, cfg)                            -> params
+  init_state(cfg, batch, device)               -> state
+  prefill(params, state, tokens, lengths, cfg) -> (last_logits, state)
+  decode(params, state, tokens, lengths, cfg)  -> (logits, state)
+
+Unlike the JAX functions, these update ``state`` IN PLACE and return the
+same dict.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.layers import ModelConfig
+
+LORA_DECAY = 64
+LORA_MIX = 32
+N_MIX = 5  # w, k, v, r, g
+HEAD_SIZE = 64
+
+
+def head_dims(cfg: ModelConfig) -> tuple[int, int]:
+    return cfg.d_model // HEAD_SIZE, HEAD_SIZE
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _dinit(gen, shape, dtype, scale=None, *, stack: int):
+    """N(0, scale^2) drawn in f32 (scale defaults to 1/sqrt(shape[0])),
+    stored in ``dtype``, ``stack`` layers along a new leading axis."""
+    s = scale if scale is not None else 1.0 / math.sqrt(max(1, shape[0]))
+    w = torch.randn((stack,) + tuple(shape), generator=gen,
+                    dtype=torch.float32, device=gen.device)
+    return (w * s).to(dtype)
+
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig):
+    """Random weights from ``gen`` (on the device they go to), with the JAX
+    initialisers' distributions."""
+    n, d, dt, dev = cfg.num_layers, cfg.d_model, cfg.dtype, gen.device
+    nh, hd = head_dims(cfg)
+
+    def full(shape, value, dtype=dt):
+        return torch.full((n,) + shape, value, dtype=dtype, device=dev)
+
+    blocks = {
+        "norm_tm": L.init_norm(cfg, dev, stack=n),
+        "norm_cm": L.init_norm(cfg, dev, stack=n),
+        "tm": {
+            "mix_base": full((N_MIX, d), 0.0),
+            "mix_x": full((d,), 0.0),
+            "mix_w1": _dinit(gen, (d, N_MIX * LORA_MIX), dt, stack=n),
+            "mix_w2": _dinit(gen, (N_MIX, LORA_MIX, d), dt, 0.01, stack=n),
+            "wr": _dinit(gen, (d, d), dt, stack=n),
+            "wk": _dinit(gen, (d, d), dt, stack=n),
+            "wv": _dinit(gen, (d, d), dt, stack=n),
+            "wg": _dinit(gen, (d, d), dt, stack=n),
+            "wo": _dinit(gen, (d, d), dt, stack=n),
+            "decay_base": full((d,), -6.0, torch.float32),
+            "decay_w1": _dinit(gen, (d, LORA_DECAY), dt, stack=n),
+            "decay_w2": _dinit(gen, (LORA_DECAY, d), dt, 0.01, stack=n),
+            "bonus_u": _dinit(gen, (nh, hd), torch.float32, 0.5, stack=n),
+            "ln_out_scale": full((d,), 1.0),
+            "ln_out_bias": full((d,), 0.0),
+        },
+        "cm": {
+            "mix_k": full((d,), 0.0),
+            "mix_r": full((d,), 0.0),
+            "wk": _dinit(gen, (d, cfg.d_ff), dt, stack=n),
+            "wv": _dinit(gen, (cfg.d_ff, d), dt, stack=n),
+            "wr": _dinit(gen, (d, d), dt, stack=n),
+        },
+    }
+    return {"embed": L.init_embedding(gen, cfg), "blocks": blocks,
+            "final_norm": L.init_norm(cfg, dev)}
+
+
+def init_state(cfg: ModelConfig, batch: int, device):
+    nh, hd = head_dims(cfg)
+    lead = (cfg.num_layers, batch)
+    return {
+        "ts_tm": torch.zeros(lead + (cfg.d_model,), dtype=cfg.dtype,
+                             device=device),
+        "ts_cm": torch.zeros(lead + (cfg.d_model,), dtype=cfg.dtype,
+                             device=device),
+        "wkv": torch.zeros(lead + (nh, hd, hd), dtype=torch.float32,
+                           device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# block
+# ---------------------------------------------------------------------------
+
+
+def _token_shift(x, last):
+    """shifted[t] = x[t-1], with ``last`` filling t=0. x: (B, T, d)."""
+    return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _time_mix(p, x, last, wkv_state, cfg: ModelConfig, *, seq_mode: str):
+    b, t, d = x.shape
+    nh, hd = head_dims(cfg)
+    xx = _token_shift(x, last) - x
+    xbase = x + xx * p["mix_x"]
+    lora = torch.tanh(xbase @ p["mix_w1"]).view(b, t, N_MIX, LORA_MIX)
+    mixes = p["mix_base"] + torch.einsum("btnm,nmd->btnd", lora,
+                                         p["mix_w2"])
+    xw, xk, xv, xr, xg = [x + xx * mixes[:, :, i] for i in range(N_MIX)]
+
+    r = (xr @ p["wr"]).view(b, t, nh, hd)
+    k = (xk @ p["wk"]).view(b, t, nh, hd)
+    v = (xv @ p["wv"]).view(b, t, nh, hd)
+    g = F.silu(xg @ p["wg"])
+
+    decay = p["decay_base"] + (torch.tanh(xw @ p["decay_w1"])
+                               @ p["decay_w2"]).float()
+    # the clip keeps |log w| <= e^0.5, so the chunked forms' factored
+    # exponents stay f32-safe; every form sees the same w
+    w = torch.exp(-torch.exp(decay.clamp(-20.0, 0.5))).view(b, t, nh, hd)
+
+    out, new_s = ops.wkv6_op(r, k, v, w, p["bonus_u"], wkv_state, seq_mode)
+
+    # per-head group norm (population variance), in f32
+    mu = out.mean(dim=-1, keepdim=True)
+    var = (out - mu).square().mean(dim=-1, keepdim=True)
+    out = ((out - mu) * torch.rsqrt(var + 64e-5)).reshape(b, t, d)
+    out = out * p["ln_out_scale"].float() + p["ln_out_bias"].float()
+    out = out.to(x.dtype) * g
+    return out @ p["wo"], x[:, -1, :], new_s
+
+
+def _channel_mix(p, x, last):
+    xx = _token_shift(x, last) - x
+    xk = x + xx * p["mix_k"]
+    xr = x + xx * p["mix_r"]
+    k = torch.relu(xk @ p["wk"]).square()
+    return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1, :]
+
+
+def _layer(tree, i: int):
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _block(bp, x, state, cfg: ModelConfig, seq_mode: str):
+    ts_tm, ts_cm, wkv_s = state
+    h = L.apply_norm(bp["norm_tm"], x, cfg)
+    tm_out, new_ts_tm, new_wkv = _time_mix(bp["tm"], h, ts_tm, wkv_s, cfg,
+                                           seq_mode=seq_mode)
+    x = x + tm_out
+    h = L.apply_norm(bp["norm_cm"], x, cfg)
+    cm_out, new_ts_cm = _channel_mix(bp["cm"], h, ts_cm)
+    return x + cm_out, (new_ts_tm, new_ts_cm, new_wkv)
+
+
+def _run(params, x, state, cfg: ModelConfig, seq_mode: str):
+    """The blocks in order (``lax.scan`` over layers becomes a loop); each
+    layer's state is overwritten in place."""
+    names = ("ts_tm", "ts_cm", "wkv")
+    for i in range(cfg.num_layers):
+        x, new = _block(_layer(params["blocks"], i), x,
+                        tuple(state[n][i] for n in names), cfg, seq_mode)
+        for n, value in zip(names, new):
+            state[n][i].copy_(value)
+    return x, state
+
+
+# ---------------------------------------------------------------------------
+# entry points (the dense model's interface)
+# ---------------------------------------------------------------------------
+
+
+def prefill(params, state, tokens, lengths, cfg: ModelConfig):
+    """Prefill of tokens (B, S) from ``state``. Linear-state models have no
+    per-position cache: the executor runs requests one at a time, so every
+    row's tokens are real. Returns (logits at lengths-1 (B, V), state)."""
+    x = L.embed(params["embed"], tokens, cfg)
+    x, state = _run(params, x, state, cfg, "chunked")
+    b, s, _ = x.shape
+    idx = (lengths.long() - 1).clamp(0, s - 1)
+    last = x[torch.arange(b, device=x.device), idx]
+    last = L.apply_norm(params["final_norm"], last[:, None], cfg)
+    return L.unembed(params["embed"], last, cfg)[:, 0], state
+
+
+def decode(params, state, tokens, lengths, cfg: ModelConfig):
+    """One decode step of tokens (B,); ``lengths`` is unused (the state is
+    the whole context). Returns (logits (B, V), state)."""
+    x = L.embed(params["embed"], tokens[:, None], cfg)
+    x, state = _run(params, x, state, cfg, "decode")
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return L.unembed(params["embed"], x, cfg)[:, 0], state

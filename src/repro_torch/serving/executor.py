@@ -1,12 +1,12 @@
 """Real executors on PyTorch: the clock sources behind the engine.
 
 Counterpart of ``repro/serving/executor.py`` for the families the port
-carries (dense transformers).
+carries (dense transformers, rwkv6).
 
-* ``RealExecutor`` runs the model on one device: a slotted cache
-  ``{"k","v"}`` of shape (L, max_slots, max_len, Hkv, D), chunked prefill
-  into slot rows, batched decode across all slots. Iteration durations are
-  measured wall-clock.
+* ``RealExecutor`` runs the model on one device: a slotted cache (dense:
+  ``{"k","v"}`` of shape (L, max_slots, max_len, Hkv, D); rwkv6: the
+  recurrent state with a slot axis 1), chunked prefill into slot rows,
+  batched decode. Iteration durations are measured wall-clock.
 * ``ClusterRealExecutors`` holds one executor per worker; replicas share
   weights and one ``ExecutorKernels``.
 * ``RealTorchBackend`` is the ``ExecutionBackend`` that plugs the cluster
@@ -18,7 +18,8 @@ Two regimes per executor, as in the JAX package:
 
 * ``batched=False`` — the scalar reference: one ``prefill_chunk`` per
   request on its slot, a host transfer per sampled token.
-* ``batched=True`` (default) — the fast path: prefill chunks are padded to
+* ``batched=True`` (default) — the fast path, for families with a
+  ``prefill_chunk`` (dense): prefill chunks are padded to
   a pow2 bucket grid and all same-bucket parts of an iteration run as one
   call over gathered slot rows, then the decode batch, with one host to
   device upload and exactly one device to host transfer of the sampled
@@ -26,8 +27,18 @@ Two regimes per executor, as in the JAX package:
   prefix tokens and spill right only while ``start + bucket <= max_len``;
   pad rows duplicate row 0, so their writes are idempotent.
 
+Stateful families (rwkv6) have no positional cache to extend, so they run
+the scalar reference under either setting, as in the JAX package: each
+prefill chunk replays the prompt so far on a fresh one-slot state, and a
+migration replays prompt and output on the destination. Their decode runs
+ONLY the batch's slots (their state rows gathered, decoded, written back).
+That is the one intended departure from the JAX executor, whose scalar
+decode steps every slot with token 0 for slots outside the batch: the
+rwkv state of a request whose last prefill chunk rides on another
+request's decode batch then takes in a bogus token (ROADMAP.md, queue 3).
+
 Caches are updated in place (the JAX executor donates its buffers). On a
-CUDA device the attention of both regimes runs in the Hopper kernels.
+CUDA device the attention and the WKV recurrence run in the Hopper kernels.
 """
 from __future__ import annotations
 
@@ -178,7 +189,7 @@ class RealExecutor:
         self.lengths = np.zeros(max_slots, np.int32)
         self.prompts: dict[int, np.ndarray] = {}     # rid -> prompt tokens
         self.generated: dict[int, list[int]] = {}
-        self.fast = batched
+        self.fast = bool(batched and self.api.prefill_chunk is not None)
         if self.fast and kernels is None:
             kernels = ExecutorKernels(self.api, max_slots, max_len,
                                       self.device)
@@ -228,10 +239,20 @@ class RealExecutor:
         slot = self._slot(req.rid)
         start = int(req.prefilled_tokens)
         take = tokens_this_chunk
-        chunk = self.prompts[req.rid][start:start + take]
-        logits, _ = self.api.prefill_chunk(
-            self.params, self._cache_view(slot), self._tensor(chunk[None, :]),
-            self._tensor(np.asarray([start])))
+        if self.api.prefill_chunk is not None:
+            chunk = self.prompts[req.rid][start:start + take]
+            logits, _ = self.api.prefill_chunk(
+                self.params, self._cache_view(slot),
+                self._tensor(chunk[None, :]),
+                self._tensor(np.asarray([start])))
+        else:
+            # stateful families: re-run full prefill up to this point
+            full = self.prompts[req.rid][:start + take]
+            view = self._fresh_view()
+            logits, view = self.api.prefill(
+                self.params, view, self._tensor(full[None, :]),
+                self._tensor(np.asarray([start + take])))
+            self._cache_write(slot, view)
         self.lengths[slot] = start + take
         if start + take >= req.prompt_len:
             tok = int(logits[0].argmax())
@@ -242,6 +263,9 @@ class RealExecutor:
 
     def run_decode_batch(self, reqs) -> None:
         if not reqs:
+            return
+        if self.api.prefill_chunk is None:
+            self._decode_slots(reqs)
             return
         slots = [self._slot(r.rid) for r in reqs]
         tokens = np.zeros(self.max_slots, np.int32)
@@ -254,6 +278,26 @@ class RealExecutor:
         logits = logits.cpu().numpy()
         for r, s in zip(reqs, slots):
             self.generated[r.rid].append(int(logits[s].argmax()))
+            self.lengths[s] += 1
+
+    def _decode_slots(self, reqs) -> None:
+        """Stateful families: decode only the batch's slots. Their rows of
+        every state leaf are gathered, decoded and written back, so a slot
+        outside the batch keeps its state bit for bit."""
+        slots = [self._slot(r.rid) for r in reqs]
+        tokens = np.asarray([self.generated[r.rid][-1] for r in reqs],
+                            np.int32)
+        idx, tok, lengths = _to_device(
+            [np.asarray(slots, np.int32), tokens, self.lengths[slots]],
+            self.device)
+        idx = idx.long()
+        view = {k: a.index_select(1, idx) for k, a in self.cache.items()}
+        logits, view = self.api.decode(self.params, view, tok, lengths)
+        for k, a in self.cache.items():
+            a.index_copy_(1, idx, view[k])
+        host = _to_host(logits.argmax(dim=-1))
+        for r, s, t in zip(reqs, slots, host):
+            self.generated[r.rid].append(int(t))
             self.lengths[s] += 1
 
     # ------------------------------------------------------ fused fast path
@@ -357,7 +401,9 @@ class ClusterRealExecutors:
     All replicas share weights and entry points. ``params`` are the port's
     parameters (e.g. from ``models.convert.params_from_jax``); without them
     the weights are drawn from a ``torch.Generator`` seeded with ``seed``.
-    ``device=None`` means CUDA and raises without a card.
+    ``device=None`` means CUDA and raises without a card. ``warmup`` runs
+    every entry point once on a throwaway cache or state (kernels built and
+    loaded before the first measured iteration).
     """
 
     def __init__(self, cfg, n_workers: int, max_slots: int = 8,
@@ -371,7 +417,7 @@ class ClusterRealExecutors:
         self.params = params            # replicas share weights
         self._owner: dict[int, int] = {}     # rid -> owning wid
         kernels = ExecutorKernels(api, max_slots, max_len, device) \
-            if batched else None
+            if batched and api.prefill_chunk is not None else None
         self.kernels = kernels
         self.execs = {
             i: RealExecutor(cfg, max_slots=max_slots, max_len=max_len,
@@ -380,8 +426,10 @@ class ClusterRealExecutors:
                             device=device)
             for i in range(n_workers)
         }
-        if kernels is not None and warmup:
+        if warmup and kernels is not None:
             kernels.warmup(params)
+        elif warmup and api.prefill_chunk is None:
+            _warmup_stateful(api, params, max_len, device)
 
     def on_finish(self, req) -> None:
         wid = self._owner.get(req.rid)
@@ -393,8 +441,8 @@ class ClusterRealExecutors:
 
     def migrate(self, req, src: int, dst: int) -> None:
         """Move the request across workers: the fast path copies the KV
-        slot device-to-device; the scalar reference re-derives it by
-        replaying prefill."""
+        slot device-to-device; the scalar reference and stateful families
+        re-derive it by replaying prefill of prompt and output so far."""
         se, de = self.execs[src], self.execs[dst]
         de.prompts[req.rid] = se.prompts[req.rid]
         de.generated[req.rid] = list(se.generated[req.rid])
@@ -416,6 +464,17 @@ class ClusterRealExecutors:
         de._cache_write(slot, view)
         de.lengths[slot] = len(full)
         se.release(req.rid)
+
+
+def _warmup_stateful(api, params, max_len: int, device) -> None:
+    """One short prefill and one decode of a stateful family on a
+    throwaway one-slot state."""
+    state = api.init_cache(1, max_len, device)
+    toks = torch.zeros((1, 8), dtype=torch.int32, device=device)
+    n = torch.full((1,), 8, dtype=torch.int32, device=device)
+    api.prefill(params, state, toks, n)
+    api.decode(params, state, toks[:, 0], n)
+    _sync(device)
 
 
 class RealTorchBackend:

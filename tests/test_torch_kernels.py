@@ -159,8 +159,10 @@ def test_ops_raise_on_unsupported_devices():
         ops.paged_attention_op(meta, kp, vp, bt, lengths)
     with pytest.raises(ValueError, match="no kernel"):
         ops.chunked_prefill_op(meta[:, None], kp, vp, lengths)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.wkv6_op(q)
+    meta4 = torch.empty((2, 1, 4, 64), device="meta")
+    u, s0 = torch.zeros((4, 64)), torch.zeros((2, 4, 64, 64))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.wkv6_op(meta4, meta4, meta4, meta4, u, s0, "decode")
 
 
 @pytest.mark.parametrize("kernel", ["paged", "chunked"])

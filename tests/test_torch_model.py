@@ -46,7 +46,8 @@ def _models(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-7b",
-                                  "stablelm-1.6b", "internlm-20b"])
+                                  "stablelm-1.6b", "internlm-20b",
+                                  "rwkv6-7b"])
 def test_configs_match_the_jax_package(arch):
     from repro.configs import get_config as jax_config
     for get_t, get_j in ((get_config, jax_config), (get_smoke, jax_smoke)):

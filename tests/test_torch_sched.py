@@ -1,8 +1,8 @@
 """PyTorch port, scheduling: the port's build_cluster with a
 RealTorchBackend under the cost-model clock makes exactly the decisions of
 the JAX package's pure simulator (mirroring tests/test_sched_core.py's
-backend parity), and the port's serve CLI finishes every request with the
-JAX real mode's JSON keys."""
+backend parity), dense and rwkv6, and the port's serve CLI finishes every
+request with the JAX real mode's JSON keys."""
 import copy
 import json
 
@@ -24,6 +24,7 @@ from repro_torch.serving.executor import ClusterRealExecutors  # noqa: E402
 from repro_torch.serving.simulator import build_cluster  # noqa: E402
 
 ARCH = "deepseek-7b"
+RWKV = "rwkv6-7b"
 
 
 def _trace(req_cls, slo_cls, two_class, n=6, prompt=24, out=5):
@@ -38,19 +39,22 @@ def _trace(req_cls, slo_cls, two_class, n=6, prompt=24, out=5):
             for i in range(8)]
 
 
-@pytest.mark.parametrize("policy,two_class", [("tropical", False),
-                                              ("distserve", False),
-                                              ("tropical", True)])
-def test_real_torch_backend_decisions_equal_jax_simulator(policy, two_class):
-    sim_a, _ = jbuild(jax_smoke(ARCH), policy, n_workers=2,
+@pytest.mark.parametrize("policy,two_class,arch", [
+    ("tropical", False, ARCH), ("distserve", False, ARCH),
+    ("tropical", True, ARCH), ("tropical", False, RWKV)],
+    ids=["tropical-False", "distserve-False", "tropical-True",
+         "tropical-False-rwkv6"])
+def test_real_torch_backend_decisions_equal_jax_simulator(policy, two_class,
+                                                          arch):
+    sim_a, _ = jbuild(jax_smoke(arch), policy, n_workers=2,
                       worker_spec=JWorkerSpec(tp=1), record_decisions=True)
     sim_a.add_trace(_trace(JRequest, JSLOSpec, two_class))
     m_a = sim_a.run(until=3000.0)
 
-    execs = ClusterRealExecutors(get_smoke(ARCH), 2, max_slots=8, max_len=64,
+    execs = ClusterRealExecutors(get_smoke(arch), 2, max_slots=8, max_len=64,
                                  device="cpu")
     backend = execs.as_backend(clock="model")
-    sim_b, _ = build_cluster(get_smoke(ARCH), policy, n_workers=2,
+    sim_b, _ = build_cluster(get_smoke(arch), policy, n_workers=2,
                              worker_spec=WorkerSpec(tp=1),
                              record_decisions=True, backend=backend)
     trace = _trace(Request, SLOSpec, two_class)
@@ -69,8 +73,8 @@ def test_real_torch_backend_decisions_equal_jax_simulator(policy, two_class):
         assert gen and max(len(g) for g in gen) >= r.output_len
 
 
-def test_serve_real_mode_finishes_with_the_jax_json_keys(capsys):
-    argv = ["--mode", "real", "--arch", "qwen2-1.5b", "--rate", "2",
+def _serve_matches_jax_json_keys(capsys, arch):
+    argv = ["--mode", "real", "--arch", arch, "--rate", "2",
             "--duration", "4", "--workers", "2", "--seed", "1", "--json"]
     row = serve.main(argv + ["--device", "cpu"])
     out = json.loads(capsys.readouterr().out)
@@ -82,6 +86,16 @@ def test_serve_real_mode_finishes_with_the_jax_json_keys(capsys):
     assert set(row) == set(jrow)
     assert set(row["per_class"]["default"]) == \
         set(jrow["per_class"]["default"])
+    return row
+
+
+def test_serve_real_mode_finishes_with_the_jax_json_keys(capsys):
+    _serve_matches_jax_json_keys(capsys, "qwen2-1.5b")
+
+
+def test_serve_real_mode_rwkv6_finishes_with_the_jax_json_keys(capsys):
+    row = _serve_matches_jax_json_keys(capsys, RWKV)
+    assert row["arch"] == "rwkv6-smoke"
 
 
 def test_serve_refuses_cuda_without_a_card(monkeypatch):
