@@ -4,15 +4,20 @@
 
 Phases (one line each, a non-zero exit on any failure):
   device    card name and power limit (nvidia-smi), torch and CUDA versions
-  build     nvcc builds the three CUDA kernels from
-            src/repro_torch/kernels/csrc, one nvcc each, all at once
-  kernels   each kernel against its plain PyTorch version on the card
+  build     nvcc builds the three CUDA libraries from
+            src/repro_torch/kernels/csrc, one nvcc each, all at once, and
+            prints ptxas's registers and spills for every device kernel
+  kernels   each kernel against its plain PyTorch version on the card,
+            every case checked to run the device kernel variant the
+            library picks for it (prefill: tensor cores for bf16 at
+            D = 64/128, CUDA cores otherwise; wkv6: decode for T = 1)
             (attention: bf16 rtol = atol = 2e-2, f32 1e-4, sums run in
             another order; wkv6 against the sequential scan, bf16 and f32
             inputs alike: out rtol = atol = 3e-4, state rtol 3e-4 atol 3e-3,
             the JAX package's own tolerances), then timed against the plain
             version, its bound and, for attention, torch's
-            scaled_dot_product_attention on the same work
+            scaled_dot_product_attention on the same work (``time_ms``: the
+            card sleeps before each timed call, so no host time is timed)
   model     full-width qwen2-1.5b (random weights from a seed): prefill_chunk
             then decode steps through the kernels and through the plain
             attention, logits compared (stated tolerance below)
@@ -31,11 +36,14 @@ Phases (one line each, a non-zero exit on any failure):
             keep its state bit for bit
   profile   torch.profiler over a prefill, a decode and a mixed iteration:
             wall and device time, idle share, attention vs matmul time
+            (kernels matched by the names the wrappers export; attention
+            and wkv6 must show device time)
   serve     the user entry point, repro_torch.launch.serve, on full-width
             qwen2-1.5b under the tropical policy (the dense main path)
   serve_rwkv  the same on full-width rwkv6-7b (the rwkv main path)
 Each serve phase zeroes the kernels' launch counts just before it and reads
-them just after.
+them just after, per device kernel variant too: the dense path must launch
+the tensor-core prefill kernel, the rwkv path both wkv6 kernels.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -105,15 +113,32 @@ def check(ok: bool, msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 20) -> float:
-    """Median CUDA-event time of ``fn`` with L2 flushed before each rep."""
+    """Median CUDA-event time of ``fn`` with L2 flushed before each rep.
+    After each flush the card sleeps (``torch.cuda._sleep``) for twice the
+    host time of one call, at least 0.3 ms, and the start event follows the
+    sleep: the host has queued ``fn`` before the card takes the start
+    timestamp, so the window holds device time only, not the wrapper's
+    host work."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    torch.cuda._sleep(1_000_000)
+    e.record()
+    e.synchronize()
+    cycles_per_ms = 1_000_000 / s.elapsed_time(e)
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep = int(cycles_per_ms * max(0.3, 2 * host_ms))
     times = []
     for _ in range(reps):
         flush.zero_()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep)
         s.record()
         fn()
         e.record()
@@ -141,6 +166,25 @@ def phase_device() -> str:
     return card
 
 
+def _kernel_label(mangled: str) -> str:
+    """``wkv6_chunk_kernel<bf16,32>`` from the mangled name of a kernel
+    template in a (hashed) anonymous namespace, as ptxas prints it:
+    ``_ZN<len><namespace><len><name>I<args>E...``."""
+    m = re.match(r"_ZN", mangled)
+    if not m:
+        return mangled[:48]
+    i, name = m.end(), mangled[:48]
+    while (n := re.match(r"\d+", mangled[i:])):
+        i += n.end()
+        name, i = mangled[i:i + int(n.group())], i + int(n.group())
+    t = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E)+)E", mangled[i:])
+    if not t:
+        return name
+    args = ["f32" if a == "f" else "bf16" if a.startswith("13") else a[2:-1]
+            for a in re.findall(r"f|13__nv_bfloat16|Li\d+E", t.group(1))]
+    return f"{name}<{','.join(args)}>"
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     build.build_all(LIBS)
@@ -150,16 +194,11 @@ def phase_build() -> None:
         for line in lib.build_log.splitlines():       # nvcc -Xptxas -v
             entry = re.search(r"Compiling entry function '(\S+)'", line)
             if entry:
-                t = re.search(r"I(f|13__nv_bfloat16)(?:Li(\d)E)?E",
-                              entry.group(1))
-                pairs = f", col_pairs={t.group(2)}" if t and t.group(2) \
-                    else ""
-                name = f"<{'f32' if t.group(1) == 'f' else 'bf16'}{pairs}>" \
-                    if t else entry.group(1)[:48]
+                name = _kernel_label(entry.group(1))
             elif "spill" in line:
                 spill = line.strip()
             elif "registers" in line:
-                say("build", kernel=lib.source.stem + name,
+                say("build", kernel=f"{lib.source.name}:{name}",
                     ptxas=repr(line.split(":", 1)[1].strip() + "; " + spill))
 
 
@@ -318,6 +357,20 @@ def _wkv_work(args):
     return byts, 4 * d * d * b * t * h
 
 
+def _expect_variant(module, want: str, run) -> None:
+    """Run ``run`` and check it launched ``module``'s ``want`` variant."""
+    before = dict(module.launches_by_variant)
+    run()
+    got = {k: n - before[k] for k, n in module.launches_by_variant.items()}
+    check(got[want] > 0 and sum(got.values()) == got[want],
+          f"{module.__name__}: expected the {want} variant, launched {got}")
+
+
+def _prefill_variant(dtype, d) -> str:
+    return "tensor_core" if dtype == torch.bfloat16 and d in (64, 128) \
+        else "cuda_core"
+
+
 def phase_kernels(card: str) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(0)
     pre_k, pre_p = (chunked_prefill.chunked_prefill_attention,
@@ -325,6 +378,8 @@ def phase_kernels(card: str) -> dict:
     dec_k, dec_p = paged_attention.paged_attention, ref.paged_attention_ref
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).split(".")[-1]
+        # G = 6, D = 128 unless named; a block holds 64 // G queries (10
+        # at G = 6, 64 at G = 1 on the tensor-core variant)
         cases = {
             "rows2_sq256": _prefill_case(gen, 2, 256, MAX_LEN, dtype),
             "rows8_sq32": _prefill_case(gen, 8, 32, MAX_LEN, dtype),
@@ -333,12 +388,25 @@ def phase_kernels(card: str) -> dict:
             "ragged_sq100_smax1000": _prefill_case(gen, 2, 100, 1000, dtype),
             "window64_softcap30": _prefill_case(gen, 2, 128, 1000, dtype,
                                                 window=64, softcap=30.0),
+            "sq37": _prefill_case(gen, 3, 37, MAX_LEN, dtype),
+            "d64_g6_sq45": _prefill_case(gen, 2, 45, 512, dtype, d=64),
+            "d64_g1_sq100": _prefill_case(gen, 2, 100, 1000, dtype, hq=8,
+                                          hkv=8, d=64),
+            "d128_g1_sq70": _prefill_case(gen, 2, 70, 512, dtype, hq=8,
+                                          hkv=8),
+            "d64_g1_window32_softcap50": _prefill_case(
+                gen, 2, 150, 600, dtype, window=32, softcap=50.0, hq=4,
+                hkv=4, d=64),
         }
         for name, (args, kw) in cases.items():
-            e = _compare(f"prefill/{name}/{tag}", pre_k, pre_p, args, kw,
-                         dtype)
+            errs = []
+            _expect_variant(chunked_prefill,
+                            _prefill_variant(dtype, args[0].shape[-1]),
+                            lambda: errs.append(_compare(
+                                f"prefill/{name}/{tag}", pre_k, pre_p, args,
+                                kw, dtype)))
             say("kernels", kernel="chunked_prefill", case=name, dtype=tag,
-                max_abs_err=f"{e:.3e}")
+                max_abs_err=f"{errs[0]:.3e}")
         cases = {
             "slots8_len1024": _decode_case(gen, 8, MAX_LEN, dtype),
             "partial_page_softcap": _decode_case(
@@ -354,9 +422,16 @@ def phase_kernels(card: str) -> dict:
 
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).split(".")[-1]
+        # B*H < 132 runs 32-column slices, B*H >= 132 64-column ones
         cases = {
             "b1_t512_h64": _wkv_case(gen, 1, 512, dtype),
+            "b4_t130_h64": _wkv_case(gen, 4, 130, dtype, decay="spread",
+                                     s0_scale=0.5),
+            "decode_b1_t1_s0": _wkv_case(gen, 1, 1, dtype, s0_scale=1.0),
             "decode_b8_t1_s0": _wkv_case(gen, 8, 1, dtype, s0_scale=1.0),
+            "decode_b16_t1_s0": _wkv_case(gen, 16, 1, dtype, s0_scale=1.0),
+            "t65": _wkv_case(gen, 1, 65, dtype, h=8, decay="spread",
+                             s0_scale=0.1),
             "ragged_t100": _wkv_case(gen, 2, 100, dtype, h=8,
                                      decay="spread", s0_scale=0.1),
             "t544_clip": _wkv_case(gen, 1, 544, dtype, h=8, decay="clip",
@@ -365,9 +440,13 @@ def phase_kernels(card: str) -> dict:
                                  s0_scale=1.0),
         }
         for name, args in cases.items():
-            e = _compare_wkv(f"wkv6/{name}/{tag}", args)
+            errs = []
+            _expect_variant(wkv6, "decode" if args[0].shape[1] == 1
+                            else "chunk",
+                            lambda: errs.append(_compare_wkv(
+                                f"wkv6/{name}/{tag}", args)))
             say("kernels", kernel="wkv6", case=name, dtype=tag,
-                max_abs_err=f"{e:.3e}")
+                max_abs_err=f"{errs[0]:.3e}")
 
     # timing at the main path's shapes, bf16
     dtype = torch.bfloat16
@@ -375,7 +454,7 @@ def phase_kernels(card: str) -> dict:
     pargs, pkw = _prefill_case(gen, 2, 256, MAX_LEN, dtype, starts=[0, 384])
     byts, flops = _prefill_work(pargs, None)
     records["chunked_prefill"] = dict(
-        name="chunked_prefill", route="cuda",
+        name="chunked_prefill", route="cuda", variant="tensor_core",
         source="src/repro_torch/kernels/csrc/chunked_prefill.cu",
         replaces="src/repro/kernels/chunked_prefill.py:103",
         shape="rows=2 Sq=256 Smax=1024 starts=[0,384] Hq=12 Hkv=2 D=128 bf16",
@@ -389,7 +468,7 @@ def phase_kernels(card: str) -> dict:
                               lengths=[300, 420, 96, 512, 280, 333, 64, 450])
     byts, flops = _decode_work(dargs)
     records["paged_attention"] = dict(
-        name="paged_attention", route="cuda",
+        name="paged_attention", route="cuda", variant="cuda_core",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:107",
         shape="slots=8 max_len=1024 page=64 lengths~300 Hq=12 Hkv=2 D=128 "
@@ -399,28 +478,22 @@ def phase_kernels(card: str) -> dict:
         plain_ms=time_ms(lambda: dec_p(*dargs, **dkw)),
         library_ms=time_ms(_sdpa_decode(dargs)),
         **_bound(byts, flops, dtype))
-    # wkv6: a decode step of 8 slots (printed), then the prefill record
-    for label, args, mode in (
-            ("decode", _wkv_case(gen, 8, 1, dtype, s0_scale=1.0), "decode"),
-            ("prefill", _wkv_case(gen, 1, 512, dtype), "chunked")):
+    # wkv6: a decode step of 8 slots (its own device kernel), a prefill replay
+    for key, variant, args, mode in (
+            ("wkv6_decode", "decode", _wkv_case(gen, 8, 1, dtype,
+                                                s0_scale=1.0), "decode"),
+            ("wkv6", "chunk", _wkv_case(gen, 1, 512, dtype), "chunked")):
         byts, flops = _wkv_work(args)
         b, t, h, _ = args[0].shape
-        rec = dict(
-            name="wkv6", route="cuda",
+        records[key] = dict(
+            name=key, route="cuda", variant=variant,
             source="src/repro_torch/kernels/csrc/wkv6.cu",
             replaces="src/repro/kernels/wkv6.py:89",
             shape=f"B={b} T={t} H={h} D=64 bf16 r/k/v, f32 w/u/s0",
-            max_abs_err=_compare_wkv(f"wkv6/timed_{label}", args),
+            max_abs_err=_compare_wkv(f"wkv6/timed_{key}", args),
             ms=time_ms(lambda: wkv6.wkv6(*args)),
             plain_ms=time_ms(lambda: ref.wkv6_ref(*args, mode)),
             library_ms=None, **_bound(byts, flops, torch.float32))
-        if label == "decode":
-            say("kernels", timed="wkv6", shape=repr(rec["shape"]),
-                ms=f"{rec['ms']:.4f}", plain_ms=f"{rec['plain_ms']:.4f}",
-                bound_ms=f"{rec['bound_ms']:.5f}", bound_by=rec["bound_by"],
-                library_ms="none", card=repr(card))
-        else:
-            records["wkv6"] = rec
     for r in records.values():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         say("kernels", timed=r["name"], shape=repr(r["shape"]),
@@ -428,9 +501,9 @@ def phase_kernels(card: str) -> dict:
             bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
             library_ms=lib, card=repr(card))
     say("kernels", kernels="chunked_prefill,paged_attention,wkv6",
-        launches_so_far={"chunked_prefill": chunked_prefill.launches,
+        launches_so_far={"chunked_prefill": chunked_prefill.launches_by_variant,
                          "paged_attention": paged_attention.launches,
-                         "wkv6": wkv6.launches})
+                         "wkv6": wkv6.launches_by_variant})
     return records
 
 
@@ -736,8 +809,10 @@ def phase_executor_rwkv(card: str) -> None:
         elif label in (mixed, "decode a b"):
             wall, kernels = _profiled(lambda: ex.run_plan(plan))
             dev = _device_ms(kernels)
-            wkv_ms = _device_ms(kernels, lambda key: "wkv6" in key)
+            wkv_ms = _device_ms(kernels, _named(wkv6))
             gemm = _device_ms(kernels, _is_gemm)
+            check(wkv_ms > 0, f"executor_rwkv: no device time under the "
+                  f"names {sorted(wkv6.KERNELS.values())} in {label!r}")
             say("executor_rwkv", profiled=repr(label), wall_ms=f"{wall:.3f}",
                 device_ms=f"{dev:.3f}" if dev else "not-measured",
                 idle_share=f"{1 - dev / wall:.3f}" if dev else "not-measured",
@@ -799,6 +874,14 @@ def _device_ms(kernels, match=lambda key: True) -> float:
     return sum(_device_us(e) for e in kernels if match(e.key)) / 1e3
 
 
+def _named(*modules):
+    """A match on the profiler keys of ``modules``' device kernels, by the
+    names each wrapper module exports in ``KERNELS``."""
+    pat = re.compile(r"(?<!\w)(?:" + "|".join(
+        sorted(n for m in modules for n in m.KERNELS.values())) + r")(?!\w)")
+    return lambda key: pat.search(key) is not None
+
+
 def _is_gemm(key: str) -> bool:
     return any(s in key.lower() for s in ("gemm", "nvjet", "xmma", "cutlass"))
 
@@ -838,9 +921,9 @@ def phase_profile(card: str) -> None:
             r.prefilled_tokens += t
         dev = _device_ms(kernels)
         n = sum(e.count for e in kernels)
-        attn = _device_ms(kernels, lambda key: "prefill_kernel" in key
-                          or "paged_attention_kernel" in key)
+        attn = _device_ms(kernels, _named(chunked_prefill, paged_attention))
         gemm = _device_ms(kernels, _is_gemm)
+        check(attn > 0, f"profile: no attention kernel time in {label!r}")
         say("profile", iteration=repr(label), wall_ms=f"{wall:.3f}",
             device_ms=f"{dev:.3f}" if dev else "not-measured",
             idle_share=f"{1 - dev / wall:.3f}" if dev else "not-measured",
@@ -854,9 +937,12 @@ def phase_profile(card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_serve(card: str, phase: str, arch: str, kernels: dict) -> dict:
+def phase_serve(card: str, phase: str, arch: str, kernels: dict,
+                main_variants: dict) -> dict:
     """``repro_torch.launch.serve`` on full-width ``arch``; every kernel's
-    launch count is zeroed just before and ``kernels``' read just after."""
+    launch count is zeroed just before and ``kernels``' read just after.
+    Each of ``main_variants`` (module name -> its device kernel variants)
+    must have launched."""
     # Explicit SLOs: the trace's default limits come from the copied
     # TPU-v5e cost model, which this card's iterations do not meet; with no
     # slack the toggle (rightly) rides no prefill on a decode batch, and the
@@ -868,10 +954,15 @@ def phase_serve(card: str, phase: str, arch: str, kernels: dict) -> dict:
             "--slo-classes", "chat:ttft=5,tpot=0.5", "--json"]
     for module in (chunked_prefill, paged_attention, wkv6):
         module.launches = 0
+        for v in getattr(module, "launches_by_variant", {}):
+            module.launches_by_variant[v] = 0
     t0 = time.perf_counter()
     row, backend = serve.run(argv)
     wall = time.perf_counter() - t0
     launches = {name: module.launches for name, module in kernels.items()}
+    variants = {name: dict(module.launches_by_variant)
+                for name, module in kernels.items()
+                if hasattr(module, "launches_by_variant")}
     generated = sum(len(g) for e in backend.execs.execs.values()
                     for g in e.generated.values())
     say(phase, arch=arch, n_finished=row["n_finished"], n_total=row["n_total"],
@@ -882,17 +973,22 @@ def phase_serve(card: str, phase: str, arch: str, kernels: dict) -> dict:
         busy_s=f"{backend.busy_seconds:.3f}",
         tokens_per_busy_s=f"{generated / backend.busy_seconds:.1f}",
         wall_s=f"{wall:.2f}", card=repr(card))
-    say(phase, launches=launches)
+    say(phase, launches=launches, by_variant=variants)
     check(row["n_total"] > 0 and row["n_finished"] == row["n_total"],
           f"{phase}: not every request finished")
     check(backend.mixed_iterations >= 1, f"{phase}: no mixed iteration")
     check(all(n > 0 for n in launches.values()),
           f"{phase}: a kernel was never launched on the main path {launches}")
+    for name, wanted in main_variants.items():
+        check(all(variants[name][v] > 0 for v in wanted),
+              f"{phase}: a {name} variant of {wanted} was never launched on "
+              f"the main path {variants}")
     for lat in (row["ttft_avg"], row["tpot_avg"]):
         check(math.isfinite(lat) and lat > 0, f"{phase}: bad latency")
     del backend
     torch.cuda.empty_cache()
-    return launches
+    return launches | {f"{name}.{v}": n for name, by in variants.items()
+                       for v, n in by.items()}
 
 
 def main() -> None:
@@ -906,13 +1002,19 @@ def main() -> None:
     phase_profile(card)
     launches = phase_serve(card, "serve", ARCH,
                            {"chunked_prefill": chunked_prefill,
-                            "paged_attention": paged_attention})
-    launches |= phase_serve(card, "serve_rwkv", RWKV, {"wkv6": wkv6})
+                            "paged_attention": paged_attention},
+                           {"chunked_prefill": ("tensor_core",)})
+    launches |= phase_serve(card, "serve_rwkv", RWKV, {"wkv6": wkv6},
+                            {"wkv6": ("chunk", "decode")})
+    # a record's launches: its device kernel's on the main path
+    main = {"chunked_prefill": "chunked_prefill.tensor_core",
+            "paged_attention": "paged_attention",
+            "wkv6": "wkv6.chunk", "wkv6_decode": "wkv6.decode"}
     kernels = []
     for name, r in records.items():
         kernels.append({k: r[k] for k in (
-            "name", "route", "source", "replaces")} | {
-            "launches": launches[name],
+            "name", "route", "source", "replaces", "variant")} | {
+            "launches": launches[main[name]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

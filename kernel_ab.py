@@ -1,0 +1,88 @@
+"""Time the kernels of this tree and of another checkout in turns on one
+card, every tree under this tree's timer.
+
+    git archive <commit> | tar -x -C build/other     # where git is
+    python3 kernel_ab.py build/other
+
+Runs other, this, this, other. Each run is a fresh process that imports
+that tree's ``chip_smoke.py``, replaces its ``time_ms`` with this tree's
+(the function's source and nothing else), and runs its device, build and
+kernels phases. Prints each run's ``timed=`` lines, then one JSON line:
+per timed shape, each tree's two times and the ratio of their medians
+(this / other). Exits non-zero if any run fails.
+"""
+from __future__ import annotations
+
+import ast
+import json
+import re
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+TIMED = re.compile(r"\[kernels\] timed=(\S+) shape='([^']*)' ms=(\S+) "
+                   r"plain_ms=(\S+) bound_ms=(\S+)")
+CHILD = """
+import sys
+sys.path.insert(0, {root!r})
+import chip_smoke as c
+exec({timer!r}, c.__dict__)
+card = c.phase_device()
+c.phase_build()
+c.phase_kernels(card)
+"""
+
+
+def timer_source() -> str:
+    src = (HERE / "chip_smoke.py").read_text()
+    fn = next(n for n in ast.parse(src).body
+              if isinstance(n, ast.FunctionDef) and n.name == "time_ms")
+    return ast.get_source_segment(src, fn)
+
+
+def run(root: Path) -> dict:
+    """One tree's kernels phase: {shape: (name, ms)}."""
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD.format(root=str(root),
+                                            timer=timer_source())],
+        cwd=root, capture_output=True, text=True)
+    if proc.returncode != 0:
+        sys.exit(f"kernel_ab: the run in {root} failed\n"
+                 f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    found = {}
+    for line in proc.stdout.splitlines():
+        m = TIMED.search(line)
+        if m:
+            print(f"[{root.name}] {line}", flush=True)
+            found[m.group(2)] = (m.group(1), float(m.group(3)))
+    if not found:
+        sys.exit(f"kernel_ab: no timed line from {root}")
+    return found
+
+
+def main() -> None:
+    if len(sys.argv) != 2:
+        sys.exit(__doc__)
+    other = Path(sys.argv[1]).resolve()
+    if not (other / "chip_smoke.py").exists():
+        sys.exit(f"kernel_ab: {other} holds no chip_smoke.py")
+    runs = {"other": [], "this": []}
+    for tree, root in (("other", other), ("this", HERE), ("this", HERE),
+                       ("other", other)):
+        runs[tree].append(run(root))
+    rows = []
+    for shape in runs["this"][0]:
+        if not all(shape in r for rs in runs.values() for r in rs):
+            continue
+        ms = {t: [r[shape][1] for r in rs] for t, rs in runs.items()}
+        rows.append({"name": runs["this"][0][shape][0], "shape": shape,
+                     "this_ms": ms["this"], "other_ms": ms["other"],
+                     "ratio": statistics.median(ms["this"])
+                     / statistics.median(ms["other"])})
+    print(json.dumps({"kernel_ab": rows, "other": str(other)}))
+
+
+if __name__ == "__main__":
+    main()

@@ -12,7 +12,11 @@ cache prefix [0, starts[b] + i]; the chunk's own K/V are already written.
   starts:  (B,) int32
 
 Unlike the Pallas kernel, ragged Sq and Smax are masked, not asserted.
-``launches`` counts the kernel's launches in this process.
+The library picks one of two device kernels from (dtype, D) alone: the
+tensor-core one for bf16 at D = 64 or 128, the CUDA-core f32 one otherwise.
+``launches`` counts the wrapper's launches in this process and
+``launches_by_variant`` splits them by device kernel; ``KERNELS`` names the
+device kernels (as ``torch.profiler`` reports them) by variant.
 """
 from __future__ import annotations
 
@@ -29,9 +33,14 @@ LIB = CudaLibrary("chunked_prefill.cu", {
     "chunked_prefill_launch": [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I,
                                                      _P],
     "chunked_prefill_max_group": [_I],
+    "chunked_prefill_variant": [_I, _I],
 })
+KERNELS = {"cuda_core": "chunked_prefill_kernel",
+           "tensor_core": "chunked_prefill_mma_kernel"}
+_VARIANTS = ("cuda_core", "tensor_core")   # chunked_prefill_variant's codes
 
 launches = 0
+launches_by_variant = dict.fromkeys(KERNELS, 0)
 
 
 def chunked_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -72,4 +81,5 @@ def chunked_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
     launches += 1
+    launches_by_variant[_VARIANTS[lib.chunked_prefill_variant(d, dtype)]] += 1
     return out

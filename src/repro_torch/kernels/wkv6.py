@@ -12,8 +12,12 @@ bounds it on the card and how its design answers that.
 
 returns ``(out (B, T, H, 64) f32, sT (B, H, 64, 64) f32)``. Unlike the
 Pallas kernel, any T >= 1 is taken (no ``T % chunk`` assert) and the
-output is f32, as the model consumes it. ``launches`` counts the kernel's
-launches in this process.
+output is f32, as the model consumes it. The library picks one of two
+device kernels by T alone: a streaming one for T = 1 (the decode step) and
+the chunked one otherwise. ``launches`` counts the wrapper's launches in
+this process and ``launches_by_variant`` splits them by device kernel;
+``KERNELS`` names the device kernels (as ``torch.profiler`` reports them)
+by variant.
 """
 from __future__ import annotations
 
@@ -27,10 +31,14 @@ from repro_torch.kernels.build import (DTYPE_CODES, CudaLibrary, require,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLibrary("wkv6.cu", {
     "wkv6_launch": [_P] * 8 + [_I] * 4 + [_P],
+    "wkv6_variant": [_I],
 })
 HEAD_SIZE = 64          # csrc/wkv6.cu's kD
+KERNELS = {"chunk": "wkv6_chunk_kernel", "decode": "wkv6_decode_kernel"}
+_VARIANTS = ("chunk", "decode")          # wkv6_variant's codes
 
 launches = 0
+launches_by_variant = dict.fromkeys(KERNELS, 0)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -62,6 +70,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                 f"{r.device}")
     for x in (r, k, v, w, u, s0):
         require(x.is_contiguous(), f"{name}: inputs must be contiguous")
+    require(s0.data_ptr() % 16 == 0, f"{name}: s0 must be 16-byte aligned")
     lib = LIB.lib()
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     sT = torch.empty_like(s0)
@@ -72,4 +81,5 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
     launches += 1
+    launches_by_variant[_VARIANTS[lib.wkv6_variant(t)]] += 1
     return out, sT

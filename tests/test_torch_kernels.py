@@ -1,8 +1,13 @@
 """PyTorch port, attention kernels: the plain versions (what the ops run
 on the CPU) against the JAX package's oracles and its Pallas kernels in
-interpret mode, on the same numpy inputs; and the ops' routing. The
-Hopper kernels themselves are held against the plain versions on the card
-by chip_smoke.py."""
+interpret mode, on the same numpy inputs; a plain emulation of the
+tensor-core prefill kernel's arithmetic against the JAX oracle; the ops'
+routing; and the device kernel names the wrappers export. The Hopper
+kernels themselves are held against the plain versions on the card by
+chip_smoke.py."""
+import math
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -16,6 +21,7 @@ from repro.kernels.paged_attention import paged_attention  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import chunked_prefill as tchunk  # noqa: E402
 from repro_torch.kernels import paged_attention as tpaged  # noqa: E402
+from repro_torch.kernels import wkv6 as twkv  # noqa: E402
 
 # f32: sums in another order than XLA's; bf16: one rounding of the output
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -119,6 +125,68 @@ def test_chunked_ref_matches_jax(b, sq, hq, hkv, d, smax, window, softcap,
             interpret=True), dtype)
 
 
+def _mma_prefill_emulation(q, k_cache, v_cache, starts, softcap=None,
+                           window=None, tile=64):
+    """The arithmetic of ``chunked_prefill_mma_kernel`` in plain torch: bf16
+    Q, K, V; f32 scores (softcap before the mask); an online softmax in f32
+    over 64-key tiles in which a masked key gets weight 0; P rounded to
+    bf16 for P V, accumulated in f32; a row with no valid key gives 0."""
+    b, sq, hq, d = q.shape
+    smax, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    qf = q.bfloat16().float().reshape(b, sq, hkv, g, d)
+    kf, vf = k_cache.bfloat16().float(), v_cache.bfloat16().float()
+    qpos = starts.long()[:, None] + torch.arange(sq)[None]        # (B, Sq)
+    m = torch.full((b, hkv, g, sq), -math.inf)
+    l = torch.zeros((b, hkv, g, sq))
+    acc = torch.zeros((b, hkv, g, sq, d))
+    for k0 in range(0, smax, tile):
+        kt, vt = kf[:, k0:k0 + tile], vf[:, k0:k0 + tile]
+        s = torch.einsum("bqhgd,bshd->bhgqs", qf, kt) / math.sqrt(d)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = torch.arange(k0, k0 + kt.shape[1])
+        ok = kpos[None, None] <= qpos[:, :, None]                 # (B, Sq, t)
+        if window is not None:
+            ok = ok & (kpos[None, None] > qpos[:, :, None] - window)
+        s = torch.where(ok[:, None, None], s, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.where(m_new == -math.inf, 1.0, torch.exp(m - m_new))
+        p = torch.where(s == -math.inf, 0.0, torch.exp(s - m_new[..., None]))
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqs,bshd->bhgqd", p.bfloat16().float(), vt)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).bfloat16()
+
+
+MMA_SWEEP = [
+    # (b, sq, hq, hkv, d, smax, window, softcap): qwen2 SMOKE heads, then
+    # the full-width G = 6, D = 128 and a G = 1, D = 64 case
+    (2, 32, 6, 2, 16, 128, None, None),
+    (2, 40, 6, 2, 16, 100, 24, 30.0),
+    (1, 5, 12, 2, 128, 200, None, None),
+    (2, 70, 4, 4, 64, 160, None, None),
+]
+
+
+@pytest.mark.parametrize("b,sq,hq,hkv,d,smax,window,softcap", MMA_SWEEP)
+def test_tensor_core_prefill_numerics_match_jax(b, sq, hq, hkv, d, smax,
+                                                window, softcap):
+    """bf16 P in P V (as the JAX model casts p to V's dtype) stays within
+    the bf16 tolerance of the f32-P oracle the card holds the kernel to."""
+    rng = np.random.default_rng(1)
+    qj, qt = _pair(rng.normal(size=(b, sq, hq, d)), "bfloat16")
+    kj, kt = _pair(rng.normal(size=(b, smax, hkv, d)), "bfloat16")
+    vj, vt = _pair(rng.normal(size=(b, smax, hkv, d)), "bfloat16")
+    sj, st = _ints(rng.integers(0, smax - sq + 1, size=(b,)))
+    got = _mma_prefill_emulation(qt, kt, vt, st, softcap=softcap,
+                                 window=window)
+    _close(got, jref.chunked_prefill_attention_ref(
+        qj, kj, vj, sj, softcap=softcap, window=window), "bfloat16")
+
+
 # ------------------------------------------------------------------ routing
 
 
@@ -174,3 +242,17 @@ def test_kernel_wrappers_refuse_cpu_tensors(kernel):
             tpaged.paged_attention(q, kp, vp, bt, lengths)
         else:
             tchunk.chunked_prefill_attention(q[:, None], kp, vp, lengths)
+
+
+@pytest.mark.parametrize("module", [tchunk, tpaged, twkv],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+def test_exported_kernel_names_are_the_sources_kernels(module):
+    """The names chip_smoke.py's profile matches device time by are the
+    ``__global__`` functions of the wrapper's source, one per variant."""
+    src = module.LIB.source.read_text()
+    kernels = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(",
+        src))
+    assert set(module.KERNELS.values()) == kernels
+    assert getattr(module, "launches_by_variant",
+                   dict.fromkeys(module.KERNELS)).keys() == module.KERNELS.keys()

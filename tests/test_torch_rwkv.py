@@ -130,6 +130,65 @@ def test_ragged_t_and_the_state_carried_across_calls():
     _close(s2, s, STATE_TOL)
 
 
+def _tf32(x):
+    """f32 to tf32 (10 mantissa bits) by masking off the low 13 bits, i.e.
+    rounding toward zero, as the chunk kernel splits its operands."""
+    return (x.float().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the chunk kernel's mma.sync computes it: each operand split
+    into a tf32 big part and a tf32 remainder, big*small + small*big +
+    big*big summed in f32."""
+    ab, bb = _tf32(a), _tf32(b)
+    asm, bsm = _tf32(a - ab), _tf32(b - bb)
+    return ab @ bsm + asm @ bb + ab @ bb
+
+
+def _wkv_3xtf32_emulation(r, k, v, w, u, s0, chunk=64):
+    """The arithmetic of ``wkv6_chunk_kernel`` in plain torch: the chunked
+    form over 64-row chunks (the last one ragged), exponents relative to
+    the cumulative decay at the chunk's midpoint row, the three products
+    in 3xTF32. Returns (out (B, T, H, D), sT) in f32."""
+    rf, kf, vf, wf = (x.float().permute(0, 2, 1, 3) for x in (r, k, v, w))
+    uf = u.float()[None, :, None, :]
+    s = s0.float()
+    outs = []
+    for t0 in range(0, r.shape[1], chunk):
+        rt, kt, vt = (x[:, :, t0:t0 + chunk] for x in (rf, kf, vf))
+        lw = torch.log(wf[:, :, t0:t0 + chunk].clamp_min(1e-38))
+        cl = rt.shape[2]
+        cum = lw.cumsum(2)
+        prev = torch.cat([torch.zeros_like(cum[:, :, :1]), cum[:, :, :-1]], 2)
+        ref_ = cum[:, :, (cl - 1) // 2:(cl - 1) // 2 + 1]
+        tot = cum[:, :, -1:]
+        rd, rs = rt * torch.exp(prev - ref_), rt * torch.exp(prev)
+        kj, ks = kt * torch.exp(ref_ - cum), kt * torch.exp(tot - cum)
+        mask = torch.tril(torch.ones((cl, cl), dtype=torch.bool), -1)
+        att = torch.where(mask, _mm_3xtf32(rd, kj.transpose(-1, -2)), 0.0)
+        diag = (rt * uf * kt).sum(-1, keepdim=True)
+        outs.append(_mm_3xtf32(rs, s) + _mm_3xtf32(att, vt) + diag * vt)
+        s = torch.exp(tot).transpose(-1, -2) * s + _mm_3xtf32(
+            ks.transpose(-1, -2), vt)
+    return torch.cat(outs, 2).permute(0, 2, 1, 3), s
+
+
+@pytest.mark.parametrize("b,t,h,dtype,state_scale", [
+    (1, 100, 2, jnp.float32, 0.1),       # ragged last chunk
+    (2, 128, 2, jnp.float32, 0.1),
+    (1, 65, 1, jnp.bfloat16, 0.1),       # one row past a chunk
+    (1, 256, 1, jnp.float32, 1.0),
+])
+def test_3xtf32_chunk_numerics_match_jax_scan(b, t, h, dtype, state_scale):
+    """The chunk kernel's tensor-core products (3xTF32) hold the JAX
+    package's chunked-vs-scan tolerances against ``wkv_scan``."""
+    jargs, targs = _mk(13, b, t, h, dtype=dtype, state_scale=state_scale)
+    o, s = _wkv_3xtf32_emulation(*targs)
+    jo, js = jrwkv.wkv_scan(*(a.astype(jnp.float32) for a in jargs))
+    _close(o, jo, KERNEL_TOL)
+    _close(s, js, STATE_TOL)
+
+
 # ------------------------------------------------------------- routing
 
 
