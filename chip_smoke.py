@@ -9,8 +9,9 @@ Phases (one line each, a non-zero exit on any failure):
             prints ptxas's registers and spills for every device kernel
   kernels   each kernel against its plain PyTorch version on the card,
             every case checked to run the device kernel variant the
-            library picks for it (prefill: tensor cores for bf16 at
-            D = 64/128, CUDA cores otherwise; wkv6: decode for T = 1)
+            library picks for it (prefill and decode attention: tensor
+            cores for bf16 at D = 64/128, CUDA cores otherwise; wkv6:
+            decode for T = 1)
             (attention: bf16 rtol = atol = 2e-2, f32 1e-4, sums run in
             another order; wkv6 against the sequential scan, bf16 and f32
             inputs alike: out rtol = atol = 3e-4, state rtol 3e-4 atol 3e-3,
@@ -43,7 +44,8 @@ Phases (one line each, a non-zero exit on any failure):
   serve_rwkv  the same on full-width rwkv6-7b (the rwkv main path)
 Each serve phase zeroes the kernels' launch counts just before it and reads
 them just after, per device kernel variant too: the dense path must launch
-the tensor-core prefill kernel, the rwkv path both wkv6 kernels.
+the tensor-core prefill and decode kernels, the rwkv path both wkv6
+kernels.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -219,8 +221,10 @@ def _prefill_case(gen, b, sq, smax, dtype, starts=None, window=None,
 
 
 def _decode_case(gen, b, s, dtype, lengths=None, shuffle=False,
-                 softcap=None, hq=12, hkv=2, d=128):
-    ps = decode_page_size(s)
+                 softcap=None, hq=12, hkv=2, d=128, ps=None, holes=False):
+    """``holes``: every third table entry is -1 (the kernel reads page 0
+    there, as the plain version does)."""
+    ps = ps or decode_page_size(s)
     npp = s // ps
     q = _rand(gen, (b, hq, d), dtype)
     kp = _rand(gen, (b * npp, ps, hkv, d), dtype)
@@ -228,6 +232,8 @@ def _decode_case(gen, b, s, dtype, lengths=None, shuffle=False,
     order = torch.randperm(b * npp, generator=gen, device=DEV) if shuffle \
         else torch.arange(b * npp, device=DEV)
     tables = order.view(b, npp).to(torch.int32)
+    if holes:
+        tables[:, 1::3] = -1
     if lengths is None:
         lengths = torch.randint(1, s + 1, (b,), generator=gen, device=DEV)
     lengths = torch.as_tensor(lengths, device=DEV).to(torch.int32)
@@ -366,7 +372,7 @@ def _expect_variant(module, want: str, run) -> None:
           f"{module.__name__}: expected the {want} variant, launched {got}")
 
 
-def _prefill_variant(dtype, d) -> str:
+def _attention_variant(dtype, d) -> str:
     return "tensor_core" if dtype == torch.bfloat16 and d in (64, 128) \
         else "cuda_core"
 
@@ -401,24 +407,43 @@ def phase_kernels(card: str) -> dict:
         for name, (args, kw) in cases.items():
             errs = []
             _expect_variant(chunked_prefill,
-                            _prefill_variant(dtype, args[0].shape[-1]),
+                            _attention_variant(dtype, args[0].shape[-1]),
                             lambda: errs.append(_compare(
                                 f"prefill/{name}/{tag}", pre_k, pre_p, args,
                                 kw, dtype)))
             say("kernels", kernel="chunked_prefill", case=name, dtype=tag,
                 max_abs_err=f"{errs[0]:.3e}")
+        # G = 6, D = 128, 64-token pages unless named; splits: blocks per
+        # (b, kv-head), from B * Hkv and the table's pages
         cases = {
             "slots8_len1024": _decode_case(gen, 8, MAX_LEN, dtype),
             "partial_page_softcap": _decode_case(
                 gen, 4, MAX_LEN, dtype, lengths=[1, 65, 300, 1023],
                 softcap=30.0),
             "shuffled_tables": _decode_case(gen, 8, 512, dtype, shuffle=True),
+            "one_slot_len1024": _decode_case(gen, 1, MAX_LEN, dtype,
+                                             lengths=[MAX_LEN]),
+            "lengths_1_2_64_65": _decode_case(gen, 4, MAX_LEN, dtype,
+                                              lengths=[1, 2, 64, 65]),
+            "g16_d128": _decode_case(gen, 4, 512, dtype, hq=32, hkv=2),
+            "g8_d256": _decode_case(gen, 4, 512, dtype, hq=16, hkv=2, d=256),
+            "d64": _decode_case(gen, 4, 512, dtype, d=64),
+            "page16_shuffled_holes": _decode_case(
+                gen, 3, 400, dtype, shuffle=True, ps=16, holes=True),
         }
         for name, (args, kw) in cases.items():
-            e = _compare(f"decode/{name}/{tag}", dec_k, dec_p, args, kw,
-                         dtype)
+            q, kp, _, tables, _ = args
+            errs = []
+            _expect_variant(paged_attention,
+                            _attention_variant(dtype, q.shape[-1]),
+                            lambda: errs.append(_compare(
+                                f"decode/{name}/{tag}", dec_k, dec_p, args,
+                                kw, dtype)))
             say("kernels", kernel="paged_attention", case=name, dtype=tag,
-                max_abs_err=f"{e:.3e}")
+                splits=paged_attention.splits(
+                    q.shape[0], q.shape[1], kp.shape[2], q.shape[2],
+                    tables.shape[1], dtype),
+                max_abs_err=f"{errs[0]:.3e}")
 
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).split(".")[-1]
@@ -464,20 +489,8 @@ def phase_kernels(card: str) -> dict:
         plain_ms=time_ms(lambda: pre_p(*pargs, **pkw)),
         library_ms=time_ms(_sdpa_prefill(pargs, pkw)),
         **_bound(byts, flops, dtype))
-    dargs, dkw = _decode_case(gen, 8, MAX_LEN, dtype,
-                              lengths=[300, 420, 96, 512, 280, 333, 64, 450])
-    byts, flops = _decode_work(dargs)
-    records["paged_attention"] = dict(
-        name="paged_attention", route="cuda", variant="cuda_core",
-        source="src/repro_torch/kernels/csrc/paged_attention.cu",
-        replaces="src/repro/kernels/paged_attention.py:107",
-        shape="slots=8 max_len=1024 page=64 lengths~300 Hq=12 Hkv=2 D=128 "
-              "bf16",
-        max_abs_err=_compare("decode/timed", dec_k, dec_p, dargs, dkw, dtype),
-        ms=time_ms(lambda: dec_k(*dargs, **dkw)),
-        plain_ms=time_ms(lambda: dec_p(*dargs, **dkw)),
-        library_ms=time_ms(_sdpa_decode(dargs)),
-        **_bound(byts, flops, dtype))
+    for key, lengths, shape in DECODE_TIMED:
+        records[key] = _time_decode(gen, key, lengths, shape)
     # wkv6: a decode step of 8 slots (its own device kernel), a prefill replay
     for key, variant, args, mode in (
             ("wkv6_decode", "decode", _wkv_case(gen, 8, 1, dtype,
@@ -495,16 +508,51 @@ def phase_kernels(card: str) -> dict:
             plain_ms=time_ms(lambda: ref.wkv6_ref(*args, mode)),
             library_ms=None, **_bound(byts, flops, torch.float32))
     for r in records.values():
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        say("kernels", timed=r["name"], shape=repr(r["shape"]),
-            ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
-            bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
-            library_ms=lib, card=repr(card))
+        _say_timed(r, card)
     say("kernels", kernels="chunked_prefill,paged_attention,wkv6",
         launches_so_far={"chunked_prefill": chunked_prefill.launches_by_variant,
-                         "paged_attention": paged_attention.launches,
+                         "paged_attention": paged_attention.launches_by_variant,
                          "wkv6": wkv6.launches_by_variant})
     return records
+
+
+# decode shapes the kernels phase times (bf16, G = 6, D = 128, 64-token
+# pages of a 1024-token cache): a step of 8 slots, and one slot (the
+# low-load case); kernel_ab.py times them on another tree too
+DECODE_TIMED = (
+    ("paged_attention", (300, 420, 96, 512, 280, 333, 64, 450),
+     "slots=8 max_len=1024 page=64 lengths~300 Hq=12 Hkv=2 D=128 bf16"),
+    ("paged_attention_1slot", (1000,),
+     "slots=1 max_len=1024 page=64 length=1000 Hq=12 Hkv=2 D=128 bf16"),
+)
+
+
+def _time_decode(gen, key, lengths, shape) -> dict:
+    """The decode kernel's record on one timed shape: checked against the
+    plain version, then timed beside it, its bound and SDPA."""
+    dtype = torch.bfloat16
+    args, kw = _decode_case(gen, len(lengths), MAX_LEN, dtype,
+                            lengths=list(lengths))
+    byts, flops = _decode_work(args)
+    kernel, plain = paged_attention.paged_attention, ref.paged_attention_ref
+    return dict(
+        name=key, route="cuda", variant="tensor_core",
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:107", shape=shape,
+        max_abs_err=_compare(f"decode/timed_{key}", kernel, plain, args, kw,
+                             dtype),
+        ms=time_ms(lambda: kernel(*args, **kw)),
+        plain_ms=time_ms(lambda: plain(*args, **kw)),
+        library_ms=time_ms(_sdpa_decode(args)),
+        **_bound(byts, flops, dtype))
+
+
+def _say_timed(r: dict, card: str) -> None:
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+    say("kernels", timed=r["name"], shape=repr(r["shape"]),
+        ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+        bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
+        library_ms=lib, card=repr(card))
 
 
 def _bound(byts: int, flops: int, dtype) -> dict:
@@ -1003,12 +1051,14 @@ def main() -> None:
     launches = phase_serve(card, "serve", ARCH,
                            {"chunked_prefill": chunked_prefill,
                             "paged_attention": paged_attention},
-                           {"chunked_prefill": ("tensor_core",)})
+                           {"chunked_prefill": ("tensor_core",),
+                            "paged_attention": ("tensor_core",)})
     launches |= phase_serve(card, "serve_rwkv", RWKV, {"wkv6": wkv6},
                             {"wkv6": ("chunk", "decode")})
     # a record's launches: its device kernel's on the main path
     main = {"chunked_prefill": "chunked_prefill.tensor_core",
-            "paged_attention": "paged_attention",
+            "paged_attention": "paged_attention.tensor_core",
+            "paged_attention_1slot": "paged_attention.tensor_core",
             "wkv6": "wkv6.chunk", "wkv6_decode": "wkv6.decode"}
     kernels = []
     for name, r in records.items():

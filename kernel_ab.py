@@ -7,9 +7,11 @@ card, every tree under this tree's timer.
 Runs other, this, this, other. Each run is a fresh process that imports
 that tree's ``chip_smoke.py``, replaces its ``time_ms`` with this tree's
 (the function's source and nothing else), and runs its device, build and
-kernels phases. Prints each run's ``timed=`` lines, then one JSON line:
-per timed shape, each tree's two times and the ratio of their medians
-(this / other). Exits non-zero if any run fails.
+kernels phases; then it times, with this tree's ``_time_decode`` on that
+tree's decode kernel, each of this tree's ``DECODE_TIMED`` shapes that the
+tree's own kernels phase did not time. Prints each run's ``timed=`` lines,
+then one JSON line: per timed shape, each tree's two times and the ratio
+of their medians (this / other). Exits non-zero if any run fails.
 """
 from __future__ import annotations
 
@@ -31,15 +33,23 @@ import chip_smoke as c
 exec({timer!r}, c.__dict__)
 card = c.phase_device()
 c.phase_build()
-c.phase_kernels(card)
+have = {{r["shape"] for r in c.phase_kernels(card).values()}}
+gen = c.torch.Generator(device=c.DEV).manual_seed(1)
+for key, lengths, shape in c.DECODE_TIMED:
+    if shape not in have:
+        c._say_timed(c._time_decode(gen, key, lengths, shape), card)
 """
+SHARED = ("time_ms", "DECODE_TIMED", "_time_decode", "_say_timed")
 
 
 def timer_source() -> str:
+    """This tree's timer and decode timing, as source."""
     src = (HERE / "chip_smoke.py").read_text()
-    fn = next(n for n in ast.parse(src).body
-              if isinstance(n, ast.FunctionDef) and n.name == "time_ms")
-    return ast.get_source_segment(src, fn)
+    nodes = [n for n in ast.parse(src).body
+             if isinstance(n, ast.FunctionDef) and n.name in SHARED
+             or isinstance(n, ast.Assign)
+             and getattr(n.targets[0], "id", None) in SHARED]
+    return "\n\n".join(ast.get_source_segment(src, n) for n in nodes)
 
 
 def run(root: Path) -> dict:

@@ -40,6 +40,7 @@
 // A row with no valid key returns 0.
 #include "attention_common.cuh"
 #include "cp_async.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -152,33 +153,10 @@ constexpr int kMmaKeys = 64;               // keys per staged tile
 constexpr int kMmaStages = 2;
 
 using bf16 = __nv_bfloat16;
-
-// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(rt::smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(rt::smem_u32(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 operands, f32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+using rt::ldsm_x4;
+using rt::ldsm_x4_trans;
+using rt::mma_bf16;
+using rt::pack_bf16;
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(rt::kFull, v, 1));

@@ -17,6 +17,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) 
                "l"(src), "r"(in ? 16 : 0)
                : "memory");
 }
+// N = 4, 8 or 16 bytes global -> shared through L1, for destinations that
+// are only N-byte aligned (a padded row); zeros when !in
+template <int N>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "n"(N), "r"(in ? N : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -11,8 +11,15 @@ package:
   block_tables: (B, max_pages) int32   — per-request page ids (< 0: page 0)
   lengths:      (B,) int32             — tokens in cache, incl. the new one
 
-``launches`` counts the kernel's launches in this process; ``kernels.ops``
-is the dispatch that sends CPU tensors to ``kernels.ref`` instead.
+Each call is one launch: a thread-block cluster of S blocks per (b, kv-head)
+splits the request's pages and merges its partials in the same kernel.
+The library picks one of two device kernels from (dtype, D) alone: the
+tensor-core one for bf16 at D = 64 or 128, the CUDA-core f32 one otherwise.
+``launches`` counts the wrapper's launches in this process and
+``launches_by_variant`` splits them by device kernel; ``KERNELS`` names the
+device kernels (as ``torch.profiler`` reports them) by variant;
+``splits`` gives S for a call's sizes. ``kernels.ops`` is the dispatch that
+sends CPU tensors to ``kernels.ref`` instead.
 """
 from __future__ import annotations
 
@@ -21,17 +28,30 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import (CudaLibrary, check_cuda_inputs,
-                                       check_head_dim, require, stream_handle)
+from repro_torch.kernels.build import (DTYPE_CODES, CudaLibrary,
+                                       check_cuda_inputs, check_head_dim,
+                                       require, stream_handle)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLibrary("paged_attention.cu", {
     "paged_attention_launch": [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _P],
     "paged_attention_max_group": [_I],
+    "paged_attention_variant": [_I, _I],
+    "paged_attention_splits": [_I] * 6,
 })
-KERNELS = {"cuda_core": "paged_attention_kernel"}   # as torch.profiler names it
+KERNELS = {"cuda_core": "paged_attention_kernel",
+           "tensor_core": "paged_attention_mma_kernel"}
+_VARIANTS = ("cuda_core", "tensor_core")   # paged_attention_variant's codes
 
 launches = 0
+launches_by_variant = dict.fromkeys(KERNELS, 0)
+
+
+def splits(b: int, hq: int, hkv: int, d: int, max_pages: int,
+           dtype: torch.dtype) -> int:
+    """Blocks per (b, kv-head) that a call of these sizes launches."""
+    return LIB.lib().paged_attention_splits(b, hq, hkv, d, max_pages,
+                                            DTYPE_CODES[dtype])
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -74,4 +94,5 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
     launches += 1
+    launches_by_variant[_VARIANTS[lib.paged_attention_variant(d, dtype)]] += 1
     return out

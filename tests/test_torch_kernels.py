@@ -1,8 +1,9 @@
 """PyTorch port, attention kernels: the plain versions (what the ops run
 on the CPU) against the JAX package's oracles and its Pallas kernels in
-interpret mode, on the same numpy inputs; a plain emulation of the
-tensor-core prefill kernel's arithmetic against the JAX oracle; the ops'
-routing; and the device kernel names the wrappers export. The Hopper
+interpret mode, on the same numpy inputs; plain emulations of the
+tensor-core prefill kernel's and the split decode kernel's arithmetic
+against the JAX oracles; the ops' routing; and the device kernel names the
+wrappers export. The Hopper
 kernels themselves are held against the plain versions on the card by
 chip_smoke.py."""
 import math
@@ -185,6 +186,110 @@ def test_tensor_core_prefill_numerics_match_jax(b, sq, hq, hkv, d, smax,
                                  window=window)
     _close(got, jref.chunked_prefill_attention_ref(
         qj, kj, vj, sj, softcap=softcap, window=window), "bfloat16")
+
+
+def _split_decode_emulation(q, k_pages, v_pages, block_tables, lengths, *,
+                            splits, softcap=None):
+    """The arithmetic of ``csrc/paged_attention.cu`` in plain torch. Each
+    (b, kv-head) splits the pages holding its ``len`` tokens into
+    ``splits`` runs of whole pages (at least one a split; splits past the
+    length are empty); in a split, warp w of 4 takes key tiles w, w + 4,
+    ... and keeps its own online softmax (m, l, acc) in f32; every (split,
+    warp) partial is merged in f32, and an empty one (m = -inf) weighs 0.
+    bf16 at D = 64 / 128 is the tensor-core variant (16-key tiles, P
+    rounded to bf16 for P V); other inputs the CUDA-core one (32-key tiles,
+    P in f32; the kernel runs 1-4 warps as shared memory allows, which
+    changes only the order of the f32 merge). Length 0 gives 0."""
+    b, hq, d = q.shape
+    ps, hkv = k_pages.shape[1], k_pages.shape[2]
+    g, mp = hq // hkv, block_tables.shape[1]
+    mma = q.dtype == torch.bfloat16 and d in (64, 128)
+    tile, warps = (16, 4) if mma else (32, 4)
+    qf = q.float().reshape(b, hkv, g, d)
+    out = torch.zeros((b, hkv, g, d))
+    tok = torch.arange(mp * ps)
+    for bi in range(b):
+        n = max(0, min(int(lengths[bi]), mp * ps))
+        rows = block_tables[bi].long().clamp_min(0)[tok // ps]
+        k = k_pages[rows, tok % ps].float()                  # (P*ps, Hkv, D)
+        v = v_pages[rows, tok % ps].float()
+        pages = -(-n // ps)
+        per = max(1, -(-pages // splits))                  # pages a split
+        parts = []
+        for s in range(splits):
+            lo, hi = s * per * ps, min(n, (s + 1) * per * ps)
+            for w in range(warps):
+                m = torch.full((hkv, g), -math.inf)
+                l = torch.zeros((hkv, g))
+                acc = torch.zeros((hkv, g, d))
+                for t0 in range(lo + w * tile, hi, warps * tile):
+                    kt, vt = k[t0:min(t0 + tile, hi)], v[t0:min(t0 + tile, hi)]
+                    sc = torch.einsum("hgd,thd->hgt", qf[bi], kt) / math.sqrt(d)
+                    if softcap is not None:
+                        sc = softcap * torch.tanh(sc / softcap)
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    alpha = torch.exp(m - m_new)
+                    p = torch.exp(sc - m_new[..., None])
+                    l = l * alpha + p.sum(-1)
+                    pv = p.bfloat16().float() if mma else p
+                    acc = acc * alpha[..., None] + torch.einsum(
+                        "hgt,thd->hgd", pv, vt)
+                    m = m_new
+                parts.append((m, l, acc))
+        ms, ls, accs = (torch.stack(x) for x in zip(*parts))
+        top = ms.amax(0)
+        f = torch.where(ms == -math.inf, 0.0, torch.exp(ms - top))
+        out[bi] = (accs * f[..., None]).sum(0) / \
+            (ls * f).sum(0).clamp_min(1e-30)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def _kernel_splits(b, hkv, max_pages, sms=132, cap=16):
+    """S as the launcher picks it: the SMs over B * Hkv, at most the
+    table's pages and the cluster limit."""
+    return max(1, min(sms // (b * hkv), cap, max_pages))
+
+
+SPLIT_SWEEP = [
+    # (b, hq, hkv, d, page, max_pages, dtype, lengths, softcap, splits);
+    # splits None: as the launcher picks them
+    *[(b, hq, hkv, d, ps, mp, dt, None, None, None)
+      for b, hq, hkv, d, ps, mp, dt in PAGED_SWEEP],
+    (2, 12, 2, 128, 16, 8, "bfloat16", [20, 33], None, 8),   # splits > pages
+    (2, 12, 2, 128, 16, 4, "bfloat16", [1, 1], None, 4),     # length 1
+    (2, 8, 1, 64, 16, 4, "bfloat16", [17, 50], None, 3),     # partial page
+    (2, 16, 2, 64, 16, 4, "bfloat16", None, None, 4),        # G = 8
+    (2, 32, 2, 128, 16, 4, "bfloat16", None, None, 4),       # G = 16
+    (2, 12, 2, 128, 16, 4, "bfloat16", None, 30.0, 4),       # softcap
+    (3, 12, 2, 128, 16, 4, "float32", [1, 17, 64], 30.0, 5),  # CUDA cores
+]
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,d,ps,mp,dtype,lengths,softcap,splits", SPLIT_SWEEP)
+def test_split_decode_numerics_match_jax(b, hq, hkv, d, ps, mp, dtype,
+                                         lengths, softcap, splits):
+    """Per-split partials merged in f32, with P in bf16 on the tensor-core
+    variant, stay within the file's tolerance of the JAX oracle and of the
+    Pallas kernel."""
+    (qj, qt), (kj, kt), (vj, vt), (bj, bt), (lj, lt) = _mk_paged(
+        3, b, hq, hkv, d, ps, mp, dtype, lengths=lengths)
+    got = _split_decode_emulation(
+        qt, kt, vt, bt, lt, softcap=softcap,
+        splits=splits or _kernel_splits(b, hkv, mp))
+    _close(got, jref.paged_attention_ref(qj, kj, vj, bj, lj,
+                                         softcap=softcap), dtype)
+    _close(got, paged_attention(qj, kj, vj, bj, lj, softcap=softcap,
+                                interpret=True), dtype)
+
+
+def test_split_decode_length_zero_gives_zero():
+    """A request of length 0 has only empty splits; the kernel returns 0
+    (the oracles' uniform softmax over masked keys is not compared)."""
+    (_, qt), (_, kt), (_, vt), (_, bt), (_, lt) = _mk_paged(
+        4, 2, 12, 2, 128, 16, 4, "bfloat16", lengths=[0, 9])
+    got = _split_decode_emulation(qt, kt, vt, bt, lt, splits=4)
+    assert not got[0].any() and got[1].abs().sum() > 0
 
 
 # ------------------------------------------------------------------ routing
