@@ -11,7 +11,11 @@ Phases (one line each, a non-zero exit on any failure):
             every case checked to run the device kernel variant the
             library picks for it (prefill and decode attention: tensor
             cores for bf16 at D = 64/128, CUDA cores otherwise; wkv6:
-            decode for T = 1)
+            decode for T = 1); decode cases with a sliding window
+            (gemma2's D = 256, G = 2, window 4096 at length 4300; len -
+            window on a page boundary and window >= len; 16-token pages
+            with shuffled tables; the tensor cores at D = 128) and
+            gemma2's prefill shape
             (attention: bf16 rtol = atol = 2e-2, f32 1e-4, sums run in
             another order; wkv6 against the sequential scan, bf16 and f32
             inputs alike: out rtol = atol = 3e-4, state rtol 3e-4 atol 3e-3,
@@ -22,6 +26,10 @@ Phases (one line each, a non-zero exit on any failure):
   model     full-width qwen2-1.5b (random weights from a seed): prefill_chunk
             then decode steps through the kernels and through the plain
             attention, logits compared (stated tolerance below)
+  model_gemma2  the same for full-width gemma2-2b: one slot of a 4352-token
+            cache prefilled to 4200 tokens in chunks, then decode steps
+            at positions past 4096, so the local layers' window masks
+            real keys (CUDA-core variants of both attention kernels)
   model_rwkv  the same for full-width rwkv6-7b: prefill then decode steps
             through the wkv6 kernel (each call also checked against the
             plain scan on the same live inputs: within the kernel
@@ -38,14 +46,25 @@ Phases (one line each, a non-zero exit on any failure):
   profile   torch.profiler over a prefill, a decode and a mixed iteration:
             wall and device time, idle share, attention vs matmul time
             (kernels matched by the names the wrappers export; attention
-            and wkv6 must show device time)
+            and wkv6 must show device time); profile_gemma2 the same for
+            full-width gemma2-2b
+  calibrate perf.calibrate on the card: calibrate_hardware(H100) at serving
+            shapes with and without the GEMM pass and
+            calibrate_interference over decode batches (1, 4, 8) x chunks
+            (128, 256, 512), through the kernels (their launch counts must
+            rise, the tensor-core variants included); fails if a measured
+            fraction, before the clamp, reads over 1.05. Prints the
+            measured specs and the cost model's predicted time of the
+            profile phase's three iterations under H100's assumed and the
+            measured fractions, beside the profiled wall and device time
   serve     the user entry point, repro_torch.launch.serve, on full-width
             qwen2-1.5b under the tropical policy (the dense main path)
   serve_rwkv  the same on full-width rwkv6-7b (the rwkv main path)
+  serve_gemma2  the same on full-width gemma2-2b (the windowed path)
 Each serve phase zeroes the kernels' launch counts just before it and reads
 them just after, per device kernel variant too: the dense path must launch
-the tensor-core prefill and decode kernels, the rwkv path both wkv6
-kernels.
+the tensor-core prefill and decode kernels, the gemma2 path (head_dim 256)
+the CUDA-core ones, the rwkv path both wkv6 kernels.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -53,6 +72,7 @@ repository beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -79,6 +99,9 @@ from repro_torch.kernels import (build, chunked_prefill, ops,  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.models.layers import decode_page_size  # noqa: E402
+from repro_torch.perf import H100, CostModel, WorkerSpec  # noqa: E402
+from repro_torch.perf.calibrate import (calibrate_hardware,  # noqa: E402
+                                        calibrate_interference)
 from repro_torch.serving.engine import IterationPlan  # noqa: E402
 from repro_torch.serving.executor import ClusterRealExecutors  # noqa: E402
 
@@ -100,7 +123,12 @@ MODEL_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}
 FLOOR_FACTOR = 2.0
 ARCH = "qwen2-1.5b"
 RWKV = "rwkv6-7b"
+GEMMA2 = "gemma2-2b"
 MAX_LEN = 1024
+# gemma2's long case: one slot of this cache holds a 4200-token prompt, past
+# the local layers' 4096-token window
+GEMMA2_LEN = 4352
+GEMMA2_HEADS = dict(hq=8, hkv=4, d=256, softcap=50.0, window=4096)
 LIBS = (paged_attention.LIB, chunked_prefill.LIB, wkv6.LIB)
 
 
@@ -221,7 +249,8 @@ def _prefill_case(gen, b, sq, smax, dtype, starts=None, window=None,
 
 
 def _decode_case(gen, b, s, dtype, lengths=None, shuffle=False,
-                 softcap=None, hq=12, hkv=2, d=128, ps=None, holes=False):
+                 softcap=None, hq=12, hkv=2, d=128, ps=None, holes=False,
+                 window=None):
     """``holes``: every third table entry is -1 (the kernel reads page 0
     there, as the plain version does)."""
     ps = ps or decode_page_size(s)
@@ -237,7 +266,7 @@ def _decode_case(gen, b, s, dtype, lengths=None, shuffle=False,
     if lengths is None:
         lengths = torch.randint(1, s + 1, (b,), generator=gen, device=DEV)
     lengths = torch.as_tensor(lengths, device=DEV).to(torch.int32)
-    return (q, kp, vp, tables, lengths), dict(softcap=softcap)
+    return (q, kp, vp, tables, lengths), dict(softcap=softcap, window=window)
 
 
 def _compare(name, kernel, plain, args, kw, dtype) -> float:
@@ -274,19 +303,24 @@ def _prefill_work(args, window):
     return byts, 4 * d * hq * pairs
 
 
-def _decode_work(args):
+def _decode_work(args, window=None):
+    """(bytes, flops) of the decode on these inputs: q and out once, the
+    K and V of each request's attended tokens (the last ``window`` under a
+    window) once, the table and lengths; 4*D*Hq per attended token."""
     q, kp, _, tables, lengths = args
     b, hq, d = q.shape
     hkv = kp.shape[2]
     es = q.element_size()
-    toks = int(lengths.clamp(max=tables.shape[1] * kp.shape[1]).sum())
+    lens = lengths.clamp(max=tables.shape[1] * kp.shape[1])
+    toks = int((lens if window is None else lens.clamp(max=window)).sum())
     byts = 2 * q.numel() * es + 2 * toks * hkv * d * es \
         + 4 * (tables.numel() + b)
     return byts, 4 * d * hq * toks
 
 
 def _sdpa_prefill(args, kw):
-    """The same attention as one torch call: explicit mask, GQA."""
+    """The same attention as one torch call: explicit mask, GQA (no
+    softcap: SDPA takes none)."""
     q, kc, vc, starts = args
     sq, smax = q.shape[1], kc.shape[1]
     qpos = starts.long()[:, None] + torch.arange(sq, device=DEV)[None]
@@ -300,14 +334,26 @@ def _sdpa_prefill(args, kw):
     return lambda: f(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
-def _sdpa_decode(args):
+def _sdpa_note(kw) -> dict:
+    """A record's note on its SDPA time where the kernel applies a softcap
+    that SDPA cannot."""
+    return {"library_note": "SDPA without the softcap (it takes none)"} \
+        if kw.get("softcap") else {}
+
+
+def _sdpa_decode(args, window=None):
+    """The same decode as one torch call over the gathered pages (no
+    softcap: SDPA takes none)."""
     q, kp, vp, tables, lengths = args
     b, hq, d = q.shape
     ps, hkv = kp.shape[1], kp.shape[2]
     s = tables.shape[1] * ps
     k = kp[tables.long()].reshape(b, s, hkv, d).transpose(1, 2).contiguous()
     v = vp[tables.long()].reshape(b, s, hkv, d).transpose(1, 2).contiguous()
-    mask = (torch.arange(s, device=DEV)[None] < lengths.long()[:, None])
+    pos = torch.arange(s, device=DEV)[None]
+    mask = pos < lengths.long()[:, None]
+    if window is not None:
+        mask &= pos >= lengths.long()[:, None] - window
     mask = mask[:, None, None]
     qt = q[:, :, None]
     f = torch.nn.functional.scaled_dot_product_attention
@@ -363,13 +409,15 @@ def _wkv_work(args):
     return byts, 4 * d * d * b * t * h
 
 
-def _expect_variant(module, want: str, run) -> None:
-    """Run ``run`` and check it launched ``module``'s ``want`` variant."""
-    before = dict(module.launches_by_variant)
+def _expect_variant(want: str, run, *modules) -> None:
+    """Run ``run`` and check it launched each of ``modules``' ``want``
+    variant and no other."""
+    before = [dict(m.launches_by_variant) for m in modules]
     run()
-    got = {k: n - before[k] for k, n in module.launches_by_variant.items()}
-    check(got[want] > 0 and sum(got.values()) == got[want],
-          f"{module.__name__}: expected the {want} variant, launched {got}")
+    for m, was in zip(modules, before):
+        got = {k: n - was[k] for k, n in m.launches_by_variant.items()}
+        check(got[want] > 0 and sum(got.values()) == got[want],
+              f"{m.__name__}: expected the {want} variant, launched {got}")
 
 
 def _attention_variant(dtype, d) -> str:
@@ -403,14 +451,17 @@ def phase_kernels(card: str) -> dict:
             "d64_g1_window32_softcap50": _prefill_case(
                 gen, 2, 150, 600, dtype, window=32, softcap=50.0, hq=4,
                 hkv=4, d=64),
+            # gemma2: the second row's queries lie past the window
+            "gemma2_d256_g2_window4096_softcap50": _prefill_case(
+                gen, 2, 256, GEMMA2_LEN, dtype, starts=[0, 3900],
+                window=4096, softcap=50.0, hq=8, hkv=4, d=256),
         }
         for name, (args, kw) in cases.items():
             errs = []
-            _expect_variant(chunked_prefill,
-                            _attention_variant(dtype, args[0].shape[-1]),
+            _expect_variant(_attention_variant(dtype, args[0].shape[-1]),
                             lambda: errs.append(_compare(
                                 f"prefill/{name}/{tag}", pre_k, pre_p, args,
-                                kw, dtype)))
+                                kw, dtype)), chunked_prefill)
             say("kernels", kernel="chunked_prefill", case=name, dtype=tag,
                 max_abs_err=f"{errs[0]:.3e}")
         # G = 6, D = 128, 64-token pages unless named; splits: blocks per
@@ -430,20 +481,34 @@ def phase_kernels(card: str) -> dict:
             "d64": _decode_case(gen, 4, 512, dtype, d=64),
             "page16_shuffled_holes": _decode_case(
                 gen, 3, 400, dtype, shuffle=True, ps=16, holes=True),
+            # sliding windows: the first key is len - window (0 when the
+            # window covers the request); gemma2 at one slot of 4300
+            "gemma2_len4300_window4096": _decode_case(
+                gen, 1, GEMMA2_LEN, dtype, lengths=[4300], **GEMMA2_HEADS),
+            # 164 - 100 and 228 - 100 on page boundaries; 1, 50, 100
+            # inside the window
+            "slots8_window100": _decode_case(
+                gen, 8, MAX_LEN, dtype,
+                lengths=[1, 50, 100, 101, 164, 228, 300, 1023], window=100),
+            "page16_shuffled_window40": _decode_case(
+                gen, 3, 400, dtype, shuffle=True, ps=16,
+                lengths=[40, 56, 399], window=40),
+            "g8_d128_window64": _decode_case(
+                gen, 4, MAX_LEN, dtype, lengths=[63, 64, 65, 1000], hq=16,
+                hkv=2, window=64),
         }
         for name, (args, kw) in cases.items():
             q, kp, _, tables, _ = args
             errs = []
-            _expect_variant(paged_attention,
-                            _attention_variant(dtype, q.shape[-1]),
+            _expect_variant(_attention_variant(dtype, q.shape[-1]),
                             lambda: errs.append(_compare(
                                 f"decode/{name}/{tag}", dec_k, dec_p, args,
-                                kw, dtype)))
+                                kw, dtype)), paged_attention)
             say("kernels", kernel="paged_attention", case=name, dtype=tag,
                 splits=paged_attention.splits(
                     q.shape[0], q.shape[1], kp.shape[2], q.shape[2],
                     tables.shape[1], dtype),
-                max_abs_err=f"{errs[0]:.3e}")
+                window=kw["window"], max_abs_err=f"{errs[0]:.3e}")
 
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).split(".")[-1]
@@ -466,31 +531,35 @@ def phase_kernels(card: str) -> dict:
         }
         for name, args in cases.items():
             errs = []
-            _expect_variant(wkv6, "decode" if args[0].shape[1] == 1
-                            else "chunk",
+            _expect_variant("decode" if args[0].shape[1] == 1 else "chunk",
                             lambda: errs.append(_compare_wkv(
-                                f"wkv6/{name}/{tag}", args)))
+                                f"wkv6/{name}/{tag}", args)), wkv6)
             say("kernels", kernel="wkv6", case=name, dtype=tag,
                 max_abs_err=f"{errs[0]:.3e}")
 
     # timing at the main path's shapes, bf16
     dtype = torch.bfloat16
     records = {}
-    pargs, pkw = _prefill_case(gen, 2, 256, MAX_LEN, dtype, starts=[0, 384])
-    byts, flops = _prefill_work(pargs, None)
-    records["chunked_prefill"] = dict(
-        name="chunked_prefill", route="cuda", variant="tensor_core",
-        source="src/repro_torch/kernels/csrc/chunked_prefill.cu",
-        replaces="src/repro/kernels/chunked_prefill.py:103",
-        shape="rows=2 Sq=256 Smax=1024 starts=[0,384] Hq=12 Hkv=2 D=128 bf16",
-        max_abs_err=_compare("prefill/timed", pre_k, pre_p, pargs, pkw,
-                             dtype),
-        ms=time_ms(lambda: pre_k(*pargs, **pkw)),
-        plain_ms=time_ms(lambda: pre_p(*pargs, **pkw)),
-        library_ms=time_ms(_sdpa_prefill(pargs, pkw)),
-        **_bound(byts, flops, dtype))
+    for key, smax, starts, heads, shape in PREFILL_TIMED:
+        pargs, pkw = _prefill_case(gen, 2, 256, smax, dtype, starts=starts,
+                                   **heads)
+        byts, flops = _prefill_work(pargs, pkw["window"])
+        records[key] = dict(
+            name=key, route="cuda",
+            variant=_attention_variant(dtype, pargs[0].shape[-1]),
+            source="src/repro_torch/kernels/csrc/chunked_prefill.cu",
+            replaces="src/repro/kernels/chunked_prefill.py:103", shape=shape,
+            max_abs_err=_compare(f"prefill/timed_{key}", pre_k, pre_p, pargs,
+                                 pkw, dtype),
+            ms=time_ms(lambda: pre_k(*pargs, **pkw)),
+            plain_ms=time_ms(lambda: pre_p(*pargs, **pkw)),
+            library_ms=time_ms(_sdpa_prefill(pargs, pkw)),
+            **_sdpa_note(pkw), **_bound(byts, flops, dtype))
     for key, lengths, shape in DECODE_TIMED:
         records[key] = _time_decode(gen, key, lengths, shape)
+    for key, s, lengths, shape in GEMMA2_DECODE_TIMED:
+        records[key] = _time_decode(gen, key, lengths, shape, s=s,
+                                    **GEMMA2_HEADS)
     # wkv6: a decode step of 8 slots (its own device kernel), a prefill replay
     for key, variant, args, mode in (
             ("wkv6_decode", "decode", _wkv_case(gen, 8, 1, dtype,
@@ -516,6 +585,27 @@ def phase_kernels(card: str) -> dict:
     return records
 
 
+# prefill shapes the kernels phase times (bf16, 2 rows of 256 queries):
+# qwen2's, and gemma2's (its second row past the window)
+PREFILL_TIMED = (
+    ("chunked_prefill", MAX_LEN, [0, 384], {},
+     "rows=2 Sq=256 Smax=1024 starts=[0,384] Hq=12 Hkv=2 D=128 bf16"),
+    ("chunked_prefill_gemma2", GEMMA2_LEN, [0, 3900], GEMMA2_HEADS,
+     "rows=2 Sq=256 Smax=4352 starts=[0,3900] Hq=8 Hkv=4 D=256 window=4096 "
+     "softcap=50 bf16"),
+)
+
+# gemma2's decode shapes (bf16, 64-token pages): the serve path's step of 8
+# slots, and one slot at 4300 whose window starts at 204
+GEMMA2_DECODE_TIMED = (
+    ("paged_attention_gemma2", MAX_LEN, (300, 420, 96, 512, 280, 333, 64, 450),
+     "slots=8 max_len=1024 page=64 lengths~300 Hq=8 Hkv=4 D=256 window=4096 "
+     "softcap=50 bf16"),
+    ("paged_attention_gemma2_long", GEMMA2_LEN, (4300,),
+     "slots=1 max_len=4352 page=64 length=4300 Hq=8 Hkv=4 D=256 window=4096 "
+     "softcap=50 bf16"),
+)
+
 # decode shapes the kernels phase times (bf16, G = 6, D = 128, 64-token
 # pages of a 1024-token cache): a step of 8 slots, and one slot (the
 # low-load case); kernel_ab.py times them on another tree too
@@ -527,24 +617,29 @@ DECODE_TIMED = (
 )
 
 
-def _time_decode(gen, key, lengths, shape) -> dict:
-    """The decode kernel's record on one timed shape: checked against the
-    plain version, then timed beside it, its bound and SDPA."""
+def _time_decode(gen, key, lengths, shape, s=MAX_LEN, **case) -> dict:
+    """The decode kernel's record on one timed shape (``case``: heads,
+    head_dim, softcap, window for ``_decode_case``): checked against the
+    plain version, then timed beside it, its bound and SDPA. A window goes
+    to the work and SDPA helpers only when set, so that kernel_ab.py can
+    run this on a tree whose helpers take none."""
     dtype = torch.bfloat16
-    args, kw = _decode_case(gen, len(lengths), MAX_LEN, dtype,
-                            lengths=list(lengths))
-    byts, flops = _decode_work(args)
+    args, kw = _decode_case(gen, len(lengths), s, dtype,
+                            lengths=list(lengths), **case)
+    extra = {} if kw.get("window") is None else {"window": kw["window"]}
+    byts, flops = _decode_work(args, **extra)
     kernel, plain = paged_attention.paged_attention, ref.paged_attention_ref
     return dict(
-        name=key, route="cuda", variant="tensor_core",
+        name=key, route="cuda",
+        variant=_attention_variant(dtype, args[0].shape[-1]),
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:107", shape=shape,
         max_abs_err=_compare(f"decode/timed_{key}", kernel, plain, args, kw,
                              dtype),
         ms=time_ms(lambda: kernel(*args, **kw)),
         plain_ms=time_ms(lambda: plain(*args, **kw)),
-        library_ms=time_ms(_sdpa_decode(args)),
-        **_bound(byts, flops, dtype))
+        library_ms=time_ms(_sdpa_decode(args, **extra)),
+        **_sdpa_note(kw), **_bound(byts, flops, dtype))
 
 
 def _say_timed(r: dict, card: str) -> None:
@@ -574,8 +669,8 @@ class _PlainKernels:
     def __enter__(self):
         self.saved = (ops.paged_attention_op, ops.chunked_prefill_op,
                       ops.wkv6_op)
-        ops.paged_attention_op = lambda *a, softcap=None: \
-            ref.paged_attention_ref(*a, softcap=softcap)
+        ops.paged_attention_op = lambda *a, softcap=None, window=None: \
+            ref.paged_attention_ref(*a, softcap=softcap, window=window)
         ops.chunked_prefill_op = lambda *a, softcap=None, window=None: \
             ref.chunked_prefill_attention_ref(*a, softcap=softcap,
                                               window=window)
@@ -586,25 +681,48 @@ class _PlainKernels:
          ops.wkv6_op) = self.saved
 
 
-def phase_model() -> None:
-    import dataclasses
-    base = get_config(ARCH)
+# the dense model phases: (arch, rows, prompt tokens, chunk, cache length,
+# tokens the last chunk takes per row, or None for all of it)
+MODELS = {
+    "model": (ARCH, 2, 200, 200, MAX_LEN, [200, 150]),
+    "model_gemma2": (GEMMA2, 1, 4200, 1024, GEMMA2_LEN, None),
+}
+
+
+def phase_model(phase: str = "model") -> None:
+    """Full-width ``MODELS[phase]`` (random weights from a seed): its rows'
+    prompts prefilled in chunks, then 4 decode steps, through the kernels
+    (the variant the library picks for the dtype and head_dim, and no
+    other) and, teacher-forced, through the plain attention; the logits
+    of every chunk and step compared. gemma2's 4200-token prompt puts the
+    decode positions (4200-4203) past its 4096-token window, so each of
+    the 13 local layers leaves out the first 105-108 keys."""
+    arch, rows, n_prompt, chunk, max_len, take = MODELS[phase]
+    base = get_config(arch)
     for dtype in (torch.bfloat16, torch.float32):
         cfg = dataclasses.replace(base, dtype=dtype)
         api = model_api.build(cfg)
         params = api.init(torch.Generator(device=DEV).manual_seed(0))
         rng = np.random.default_rng(0)
-        chunk = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 200)),
-                                dtype=torch.int32, device=DEV)
-        starts = torch.zeros(2, dtype=torch.int32, device=DEV)
-        take = torch.tensor([200, 150], dtype=torch.int32, device=DEV)
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                              (rows, n_prompt)),
+                                 dtype=torch.int32, device=DEV)
+        takes = None if take is None else torch.tensor(
+            take, dtype=torch.int32, device=DEV)
 
         def run(tokens_in=None):
-            cache = api.init_cache(2, MAX_LEN, DEV)
-            logits, cache = api.prefill_chunk(params, cache, chunk, starts,
-                                              take=take)
-            outs, toks = [logits], []
-            lengths = take.clone()
+            cache = api.init_cache(rows, max_len, DEV)
+            outs, toks = [], []
+            for start in range(0, n_prompt, chunk):
+                piece = prompt[:, start:start + chunk]
+                final = start + chunk >= n_prompt
+                starts = torch.full((rows,), start, dtype=torch.int32,
+                                    device=DEV)
+                logits, cache = api.prefill_chunk(
+                    params, cache, piece, starts,
+                    take=takes if final else None)
+                outs.append(logits)
+            lengths = starts + (piece.shape[1] if takes is None else takes)
             for step in range(4):
                 tok = logits.argmax(-1).to(torch.int32) if tokens_in is None \
                     else tokens_in[step]
@@ -614,22 +732,23 @@ def phase_model() -> None:
                 lengths = lengths + 1
             return outs, toks
 
-        k0 = (chunked_prefill.launches, paged_attention.launches)
-        got, toks = run()
-        check(chunked_prefill.launches > k0[0]
-              and paged_attention.launches > k0[1],
-              "model phase did not launch both kernels")
+        result = []
+        _expect_variant(_attention_variant(dtype, cfg.head_dim),
+                        lambda: result.extend(run()), chunked_prefill,
+                        paged_attention)
+        got, toks = result
         with _PlainKernels():
             want, _ = run(toks)                  # teacher-forced
         rel, agree = _logit_errors(got, want)
         finite = all(torch.isfinite(g).all().item() for g in got)
-        say("model", arch=ARCH, dtype=str(dtype).split(".")[-1],
+        say(phase, arch=arch, dtype=str(dtype).split(".")[-1],
             params_b=f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f}",
+            prompt=n_prompt, window=cfg.sliding_window,
             logits_rel_l2=f"{rel:.3e}", tol=MODEL_TOL[dtype],
             argmax_agreement=f"{agree:.3f}")
-        check(finite, "model phase: non-finite logits")
+        check(finite, f"{phase}: non-finite logits")
         check(rel <= MODEL_TOL[dtype],
-              f"model phase: logits differ by {rel:.3e} (relative L2)")
+              f"{phase}: logits differ by {rel:.3e} (relative L2)")
         del params
         torch.cuda.empty_cache()
 
@@ -684,7 +803,6 @@ def phase_model_rwkv() -> None:
     the same inputs), then again through the plain WKV and through the
     plain sequential scan, teacher-forced with the kernel run's tokens. The
     two plain runs give the floor the kernel's logits are held to."""
-    import dataclasses
     base = get_config(RWKV)
     for dtype in (torch.bfloat16, torch.float32):
         cfg = dataclasses.replace(base, dtype=dtype)
@@ -941,13 +1059,16 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def phase_profile(card: str) -> None:
+def phase_profile(card: str, arch: str = ARCH,
+                  phase: str = "profile") -> list:
     """Where an iteration's time goes: torch.profiler over one prefill
     iteration (8 rows x 256 tokens), one decode iteration (8 slots at
     ~260 tokens) and one mixed iteration (a 256-token chunk + 8 decodes),
     full width. Device time is the sum of kernel times (one stream, so
-    kernels do not overlap); idle share = 1 - device / wall."""
-    cfg = get_config(ARCH)
+    kernels do not overlap); idle share = 1 - device / wall. Returns
+    (label, plan, wall ms, device ms) per iteration."""
+    rows = []
+    cfg = get_config(arch)
     execs = ClusterRealExecutors(cfg, 1, max_slots=16, max_len=MAX_LEN,
                                  seed=0)
     ex = execs.execs[0]
@@ -971,18 +1092,109 @@ def phase_profile(card: str) -> None:
         n = sum(e.count for e in kernels)
         attn = _device_ms(kernels, _named(chunked_prefill, paged_attention))
         gemm = _device_ms(kernels, _is_gemm)
-        check(attn > 0, f"profile: no attention kernel time in {label!r}")
-        say("profile", iteration=repr(label), wall_ms=f"{wall:.3f}",
+        check(attn > 0, f"{phase}: no attention kernel time in {label!r}")
+        say(phase, arch=arch, iteration=repr(label), wall_ms=f"{wall:.3f}",
             device_ms=f"{dev:.3f}" if dev else "not-measured",
             idle_share=f"{1 - dev / wall:.3f}" if dev else "not-measured",
             attention_kernels_ms=f"{attn:.3f}", gemm_ms=f"{gemm:.3f}",
             other_ms=f"{dev - attn - gemm:.3f}", device_kernels=n,
             card=repr(card))
         for e in kernels[:4]:
-            say("profile", kernel=repr(e.key[:70]), count=e.count,
+            say(phase, kernel=repr(e.key[:70]), count=e.count,
                 device_ms=f"{_device_us(e) / 1e3:.3f}")
+        rows.append((label, plan, wall, dev))
     del execs
     torch.cuda.empty_cache()
+    return rows
+
+
+# calibrate_hardware at serving shapes (qwen2's 12 heads of 128, a 2048-token
+# prefill, 8 requests of 1024 tokens in 64-token pages)
+CALIB_SHAPES = dict(seq=2048, heads=12, head_dim=128, batch=8, page_size=64,
+                    pages_per_seq=16, repeats=5)
+CALIB_GRID = dict(decode_batches=(1, 4, 8), chunk_sizes=(128, 256, 512),
+                  heads=12, head_dim=128, page_size=64, pages_per_seq=16,
+                  repeats=5)
+FRACTION_LIMIT = 1.05
+
+
+def _unclamped(cal, hw) -> dict:
+    """Each fraction the calibration measured, before its clamp to 1."""
+    peak = hw.peak_flops
+    out = {"attn_prefill_mfu": cal.prefill_flops / (cal.prefill_seconds * peak),
+           "attn_decode_mfu": cal.decode_flops / (cal.decode_seconds * peak),
+           "bw_eff": cal.decode_bytes / (cal.decode_seconds * hw.hbm_bw)}
+    if cal.gemm_prefill_seconds:
+        out |= {
+            "gemm_prefill_mfu": cal.gemm_prefill_flops
+            / (cal.gemm_prefill_seconds * peak),
+            "gemm_decode_mfu": cal.gemm_decode_flops
+            / (cal.gemm_decode_seconds * peak),
+            "mfu_prefill": (cal.prefill_flops + cal.gemm_prefill_flops)
+            / ((cal.prefill_seconds + cal.gemm_prefill_seconds) * peak),
+            "mfu_decode": (cal.decode_flops + cal.gemm_decode_flops)
+            / ((cal.decode_seconds + cal.gemm_decode_seconds) * peak)}
+    return out
+
+
+def phase_calibrate(card: str, profiled: list) -> None:
+    """``perf.calibrate`` on the card through the hand-written kernels: the
+    measured spec with and without the GEMM pass, the γ grid (solved
+    against the GEMM-blended measured spec, as CalibratedRooflineBackend
+    does), then the cost model's iteration times for the profile phase's
+    plans under H100's assumed fractions and under each measured spec (γ
+    table attached), beside what the profile phase measured."""
+    modules = (chunked_prefill, paged_attention)
+    before = {m: dict(m.launches_by_variant) for m in modules}
+    specs = {}
+    for gemm in (True, False):
+        hw, cal = calibrate_hardware(H100, gemm=gemm, **CALIB_SHAPES)
+        fracs = _unclamped(cal, H100)
+        key = "measured_gemm" if gemm else "measured_attention"
+        specs[key] = hw
+        say("calibrate", spec=key, device=repr(cal.device),
+            mfu_prefill=f"{hw.mfu_prefill:.6f}",
+            mfu_decode=f"{hw.mfu_decode:.6f}", bw_eff=f"{hw.bw_eff:.6f}",
+            attn_prefill_ms=f"{cal.prefill_seconds * 1e3:.4f}",
+            attn_decode_ms=f"{cal.decode_seconds * 1e3:.4f}",
+            gemm_prefill_ms=f"{cal.gemm_prefill_seconds * 1e3:.4f}",
+            gemm_decode_ms=f"{cal.gemm_decode_seconds * 1e3:.4f}",
+            unclamped={k: f"{v:.6f}" for k, v in fracs.items()},
+            card=repr(card))
+        check(all(v <= FRACTION_LIMIT for v in fracs.values()),
+              f"calibrate: a measured fraction exceeds {FRACTION_LIMIT}: "
+              f"{fracs}")
+    table, icl = calibrate_interference(specs["measured_gemm"], **CALIB_GRID)
+    say("calibrate", gamma=[list(r) for r in table.gamma],
+        decode_batches=icl.decode_batches, chunks=icl.chunk_sizes,
+        pure_prefill_ms=[round(t * 1e3, 4) for t in icl.pure_prefill_s],
+        pure_decode_ms=[round(t * 1e3, 4) for t in icl.pure_decode_s],
+        mixed_ms=[[round(t * 1e3, 4) for t in r] for r in icl.mixed_s],
+        card=repr(card))
+    for m, was in before.items():
+        rose = {v: m.launches_by_variant[v] - n for v, n in was.items()}
+        check(rose["tensor_core"] > 0,
+              f"calibrate: {m.__name__} did not launch its tensor-core "
+              f"kernel {rose}")
+        say("calibrate", kernel=m.__name__.rsplit(".", 1)[-1],
+            launches=rose)
+    specs = {k: dataclasses.replace(hw, interference=table)
+             for k, hw in specs.items()}
+    for key, hw in specs.items():
+        say("calibrate", measured_spec=key, spec=repr(hw))
+    memory = float(torch.cuda.get_device_properties(DEV).total_memory)
+    cfg = get_config(ARCH)
+    costs = {k: CostModel(cfg, WorkerSpec(tp=1, hw=dataclasses.replace(
+        hw, hbm_bytes=memory)), page_size=16)
+        for k, hw in ({"h100_assumed": H100} | specs).items()}
+    for label, plan, wall, dev in profiled:
+        predicted = {k: 1e3 * c.iteration_time(
+            plan.n_decode, plan.sum_ctx, plan.prefill_tokens,
+            plan.prefill_ctx_offset) for k, c in costs.items()}
+        say("calibrate", iteration=repr(label), wall_ms=f"{wall:.3f}",
+            device_ms=f"{dev:.3f}" if dev else "not-measured",
+            **{f"predicted_ms_{k}": f"{v:.3f}" for k, v in predicted.items()},
+            card=repr(card))
 
 
 def phase_serve(card: str, phase: str, arch: str, kernels: dict,
@@ -991,10 +1203,11 @@ def phase_serve(card: str, phase: str, arch: str, kernels: dict,
     launch count is zeroed just before and ``kernels``' read just after.
     Each of ``main_variants`` (module name -> its device kernel variants)
     must have launched."""
-    # Explicit SLOs: the trace's default limits come from the copied
-    # TPU-v5e cost model, which this card's iterations do not meet; with no
-    # slack the toggle (rightly) rides no prefill on a decode batch, and the
-    # run would not exercise the mixed iterations the paper is about.
+    # Explicit SLOs: the trace's default limits are 5x the light-load
+    # latency under the H100 cost model with its assumed fractions, which
+    # this card's host-bound iterations do not meet; with no slack the
+    # toggle (rightly) rides no prefill on a decode batch, and the run
+    # would not exercise the mixed iterations the paper is about.
     argv = ["--mode", "real", "--arch", arch, "--size", "full",
             "--policy", "tropical", "--workers", "2", "--rate", "1.5",
             "--duration", "5", "--seed", "1", "--max-len", str(MAX_LEN),
@@ -1045,30 +1258,46 @@ def main() -> None:
     records = phase_kernels(card)
     phase_model()
     phase_model_rwkv()
+    phase_model("model_gemma2")
     phase_executor(card)
     phase_executor_rwkv(card)
-    phase_profile(card)
-    launches = phase_serve(card, "serve", ARCH,
-                           {"chunked_prefill": chunked_prefill,
-                            "paged_attention": paged_attention},
-                           {"chunked_prefill": ("tensor_core",),
-                            "paged_attention": ("tensor_core",)})
-    launches |= phase_serve(card, "serve_rwkv", RWKV, {"wkv6": wkv6},
-                            {"wkv6": ("chunk", "decode")})
-    # a record's launches: its device kernel's on the main path
-    main = {"chunked_prefill": "chunked_prefill.tensor_core",
-            "paged_attention": "paged_attention.tensor_core",
-            "paged_attention_1slot": "paged_attention.tensor_core",
-            "wkv6": "wkv6.chunk", "wkv6_decode": "wkv6.decode"}
+    profiled = phase_profile(card)
+    phase_profile(card, GEMMA2, "profile_gemma2")
+    phase_calibrate(card, profiled)
+    attention = {"chunked_prefill": chunked_prefill,
+                 "paged_attention": paged_attention}
+    launches = {
+        "serve": phase_serve(card, "serve", ARCH, attention,
+                             dict.fromkeys(attention, ("tensor_core",))),
+        "serve_rwkv": phase_serve(card, "serve_rwkv", RWKV, {"wkv6": wkv6},
+                                  {"wkv6": ("chunk", "decode")}),
+        "serve_gemma2": phase_serve(card, "serve_gemma2", GEMMA2, attention,
+                                    dict.fromkeys(attention, ("cuda_core",))),
+    }
+    # a record's launches: its device kernel's on its main path
+    main = {"chunked_prefill": ("serve", "chunked_prefill.tensor_core"),
+            "paged_attention": ("serve", "paged_attention.tensor_core"),
+            "paged_attention_1slot": ("serve", "paged_attention.tensor_core"),
+            "wkv6": ("serve_rwkv", "wkv6.chunk"),
+            "wkv6_decode": ("serve_rwkv", "wkv6.decode"),
+            "chunked_prefill_gemma2": ("serve_gemma2",
+                                       "chunked_prefill.cuda_core"),
+            "paged_attention_gemma2": ("serve_gemma2",
+                                       "paged_attention.cuda_core"),
+            "paged_attention_gemma2_long": ("serve_gemma2",
+                                            "paged_attention.cuda_core")}
     kernels = []
     for name, r in records.items():
+        phase, key = main[name]
         kernels.append({k: r[k] for k in (
             "name", "route", "source", "replaces", "variant")} | {
-            "launches": launches[main[name]],
+            "launches": launches[phase][key], "launches_in": phase,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"]})
+            "shape": r["shape"]} | (
+            {"library_note": r["library_note"]} if "library_note" in r
+            else {}))
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi()}")
     print(json.dumps({"ok": True, "device": {

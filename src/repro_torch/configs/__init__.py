@@ -2,14 +2,15 @@
 
 Each module defines CONFIG (the full-size config) and SMOKE (a reduced
 same-family config for CPU tests), as in the JAX package. The port carries
-the dense configs without a sliding window and rwkv6; the other
-architectures come with their slices (ROADMAP.md, queue 1).
+the dense configs (gemma2 included) and rwkv6; the other architectures
+come with their slices (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
 import importlib
 
 ARCHS = [
+    "gemma2_2b",
     "qwen2_1_5b",
     "deepseek_7b",
     "stablelm_1_6b",
@@ -18,6 +19,7 @@ ARCHS = [
 ]
 
 _ALIASES = {
+    "gemma2-2b": "gemma2_2b",
     "qwen2-1.5b": "qwen2_1_5b",
     "deepseek-7b": "deepseek_7b",
     "stablelm-1.6b": "stablelm_1_6b",

@@ -6,7 +6,11 @@
 // block_tables (B, P); lengths[b] counts the tokens including the new one
 // (clamped to P * page_size). Pages from ceil(len/ps) on are never read,
 // table entries < 0 read page 0, optional softcap, GQA (G query heads per
-// KV head), length 0 returns 0.
+// KV head), length 0 returns 0. An optional sliding window (window > 0)
+// keeps the last `window` tokens, [len - window, len): the JAX model's
+// MaskSpec("lengths", window), kpos > lengths - window with its lengths the
+// write position, one less than this kernel's. The TPU kernel has no
+// window: the JAX model decodes through XLA, the port through this kernel.
 //
 // Bound on this card: the bytes of K and V for the valid tokens at
 // 3.35 TB/s; the products (4*D*G FLOPs per token and KV head) are far
@@ -26,8 +30,10 @@
 //   where the card can hold one of this kernel; else 8). The pages that
 //   hold the token range [first, len) are split into S runs of whole
 //   pages, at least one a split; a split past the request's length holds
-//   no key, carries m = -inf and weighs 0. `first` is 0 here: a window is
-//   a change of that one line.
+//   no key, carries m = -inf and weighs 0. `first` is len - window under a
+//   window, else 0: the splits cover [first, len) only, so the keys of
+//   first's page below it are never in a split's range (weight 0) and the
+//   pages before it are never read.
 // * The request's block table (up to 256 pages) is copied into shared
 //   memory beside the lengths read, so the K/V addresses wait for one
 //   round trip, not two. In a block, warp w takes the split's key tiles
@@ -91,6 +97,12 @@ __device__ __forceinline__ Range split_range(int first, int len, int ps, int spl
   const int pages = (len + ps - 1) / ps - p0;
   const int per = max(1, (pages + splits - 1) / splits);
   return {max(first, (p0 + split * per) * ps), min(len, (p0 + (split + 1) * per) * ps)};
+}
+
+// The first key a query at length `len` attends to: len - window under a
+// sliding window (window > 0), else 0.
+__device__ __forceinline__ int first_key(int len, int window) {
+  return window > 0 ? max(0, len - window) : 0;
 }
 
 // Element offset of token `pos`'s row for KV head h in the page pool.
@@ -257,7 +269,8 @@ __global__ void __launch_bounds__(kWarps * rt::kWarp)
 paged_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
                            const bf16* __restrict__ vp, const int* __restrict__ tables,
                            const int* __restrict__ lengths, bf16* __restrict__ out, int hq,
-                           int hkv, int ps, int max_pages, float scale, float softcap) {
+                           int hkv, int ps, int max_pages, float scale, float softcap,
+                           int window) {
   constexpr int S = mma_stride<D>();
   constexpr int CH = D / 8;      // 16-byte chunks per row
   constexpr int KD = D / 16;     // k-steps of K Q^T, and 16-row tiles of O^T
@@ -286,7 +299,7 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   rt::cp_async_commit();
 
   const int len = max(0, min(length, max_pages * ps));
-  const Range rg = split_range(0, len, ps, blockIdx.x, gridDim.x);
+  const Range rg = split_range(first_key(len, window), len, ps, blockIdx.x, gridDim.x);
   const int ntiles = rg.hi > rg.lo ? (rg.hi - rg.lo + kMmaKeys - 1) / kMmaKeys : 0;
   const int mine = ntiles > warp ? (ntiles - warp + kWarps - 1) / kWarps : 0;
   bf16* ring = ring_base + warp * kStages * 2 * TILE;
@@ -470,7 +483,7 @@ __global__ void __launch_bounds__(kWarps * rt::kWarp)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                        const T* __restrict__ vp, const int* __restrict__ tables,
                        const int* __restrict__ lengths, T* __restrict__ out, int hq, int hkv,
-                       int d, int ps, int max_pages, float scale, float softcap) {
+                       int d, int ps, int max_pages, float scale, float softcap, int window) {
   constexpr int R = rt::Shape<NCP>::kRowsPerWarp;
   constexpr int E = 16 / sizeof(T);        // elements of a 16-byte chunk
   constexpr int KB = sizeof(T) == 2 ? 4 : 8;   // copy size the padded K rows allow
@@ -498,7 +511,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 
   const int len = max(0, min(lengths[b], max_pages * ps));
-  const Range rg = split_range(0, len, ps, blockIdx.x, gridDim.x);
+  const Range rg = split_range(first_key(len, window), len, ps, blockIdx.x, gridDim.x);
   const int ntiles = rg.hi > rg.lo ? (rg.hi - rg.lo + rt::kTileKeys - 1) / rt::kTileKeys : 0;
   const int mine = ntiles > warp ? (ntiles - warp + warps - 1) / warps : 0;
   const int chunks = d / E;
@@ -626,6 +639,7 @@ struct Call {
   void* out;
   int b, hq, hkv, d, ps, max_pages;
   float softcap;
+  int window;
   cudaStream_t stream;
 };
 
@@ -652,7 +666,8 @@ cudaError_t launch_mma(const Call& c, int splits) {
                          static_cast<const bf16*>(c.q), static_cast<const bf16*>(c.kp),
                          static_cast<const bf16*>(c.vp), static_cast<const int*>(c.tables),
                          static_cast<const int*>(c.lengths), static_cast<bf16*>(c.out), c.hq,
-                         c.hkv, c.ps, c.max_pages, 1.f / sqrtf(static_cast<float>(D)), c.softcap);
+                         c.hkv, c.ps, c.max_pages, 1.f / sqrtf(static_cast<float>(D)), c.softcap,
+                         c.window);
 }
 
 // warps of a CUDA-core block: as many (up to 4) as fit in 200 KB
@@ -677,7 +692,7 @@ cudaError_t launch_core(const Call& c, int splits) {
                          static_cast<const T*>(c.vp), static_cast<const int*>(c.tables),
                          static_cast<const int*>(c.lengths), static_cast<T*>(c.out), c.hq,
                          c.hkv, c.d, c.ps, c.max_pages,
-                         1.f / sqrtf(static_cast<float>(c.d)), c.softcap);
+                         1.f / sqrtf(static_cast<float>(c.d)), c.softcap, c.window);
 }
 
 int variant(int d, int dtype) { return dtype == 1 && (d == 64 || d == 128); }
@@ -699,13 +714,13 @@ extern "C" int paged_attention_splits(int b, int hq, int hkv, int d, int max_pag
   return choose_splits(b * hkv, max_pages, cap_for(d, dtype, hq / hkv));
 }
 
-// dtype: 0 = f32, 1 = bf16. softcap <= 0 means none.
+// dtype: 0 = f32, 1 = bf16. softcap <= 0 and window <= 0 mean none.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int paged_attention_launch(const void* q, const void* kp, const void* vp,
                                       const void* tables, const void* lengths, void* out, int b,
                                       int hq, int hkv, int d, int ps, int max_pages,
-                                      float softcap, int dtype, void* stream) {
-  const Call c{q, kp, vp, tables, lengths, out, b, hq, hkv, d, ps, max_pages, softcap,
+                                      float softcap, int window, int dtype, void* stream) {
+  const Call c{q, kp, vp, tables, lengths, out, b, hq, hkv, d, ps, max_pages, softcap, window,
                static_cast<cudaStream_t>(stream)};
   const int g = hq / hkv;
   const int splits = paged_attention_splits(b, hq, hkv, d, max_pages, dtype);

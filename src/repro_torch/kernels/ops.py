@@ -20,11 +20,12 @@ def _device_kind(name: str, *tensors: torch.Tensor) -> str:
 
 
 def paged_attention_op(q, k_pages, v_pages, block_tables, lengths,
-                       softcap=None):
+                       softcap=None, window=None):
     args = (q, k_pages, v_pages, block_tables, lengths)
     if _device_kind("paged_attention_op", *args) == "cpu":
-        return ref.paged_attention_ref(*args, softcap=softcap)
-    return paged_attention.paged_attention(*args, softcap=softcap)
+        return ref.paged_attention_ref(*args, softcap=softcap, window=window)
+    return paged_attention.paged_attention(*args, softcap=softcap,
+                                           window=window)
 
 
 def chunked_prefill_op(q, k_cache, v_cache, starts, softcap=None,

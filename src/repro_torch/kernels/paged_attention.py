@@ -11,6 +11,11 @@ package:
   block_tables: (B, max_pages) int32   — per-request page ids (< 0: page 0)
   lengths:      (B,) int32             — tokens in cache, incl. the new one
 
+``window`` (optional, > 0) keeps the last ``window`` of them, keys
+[lengths - window, lengths): the JAX model's ``MaskSpec("lengths",
+window)``. The Pallas kernel takes none (the JAX model decodes through
+XLA); the port's decode goes through this kernel, hence the window here.
+
 Each call is one launch: a thread-block cluster of S blocks per (b, kv-head)
 splits the request's pages and merges its partials in the same kernel.
 The library picks one of two device kernels from (dtype, D) alone: the
@@ -34,7 +39,8 @@ from repro_torch.kernels.build import (DTYPE_CODES, CudaLibrary,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLibrary("paged_attention.cu", {
-    "paged_attention_launch": [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    "paged_attention_launch": [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _I,
+                                                     _P],
     "paged_attention_max_group": [_I],
     "paged_attention_variant": [_I, _I],
     "paged_attention_splits": [_I] * 6,
@@ -57,7 +63,8 @@ def splits(b: int, hq: int, hkv: int, d: int, max_pages: int,
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
                     lengths: torch.Tensor, *,
-                    softcap: Optional[float] = None) -> torch.Tensor:
+                    softcap: Optional[float] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
     """Launch the decode kernel on q's CUDA device; raises on any input the
     kernel does not take."""
     global launches
@@ -83,6 +90,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             f"{name}: {hq // hkv} query heads per KV head exceed the "
             f"kernel's {lib.paged_attention_max_group(d)} at head_dim {d}")
     require(softcap is None or softcap > 0, f"{name}: softcap must be > 0")
+    require(window is None or window > 0, f"{name}: window must be > 0")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -90,7 +98,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, hq, hkv, d, ps, block_tables.shape[1],
-        float(softcap or 0.0), dtype, stream_handle(q.device))
+        float(softcap or 0.0), int(window or 0), dtype,
+        stream_handle(q.device))
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
     launches += 1

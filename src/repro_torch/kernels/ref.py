@@ -21,10 +21,11 @@ def _soft_cap(s, cap):
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
-                        softcap=None):
+                        softcap=None, window=None):
     """q: (B, Hq, D); pages (N, ps, Hkv, D); block_tables (B, P); lengths
     (B,) counting tokens including the new one. Gathers each request's
-    pages into a dense (P*ps, Hkv, D) cache and runs masked attention."""
+    pages into a dense (P*ps, Hkv, D) cache and runs masked attention.
+    ``window``: only keys at positions >= lengths - window count."""
     b, hq, d = q.shape
     _, ps, hkv, _ = k_pages.shape
     g = hq // hkv
@@ -39,6 +40,8 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
     s = _soft_cap(s, softcap)
     pos = torch.arange(s_max, device=q.device)
     mask = pos[None, :] < lengths.long()[:, None]               # (B, S)
+    if window is not None:
+        mask = mask & (pos[None, :] >= lengths.long()[:, None] - window)
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v)

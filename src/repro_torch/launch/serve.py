@@ -13,12 +13,14 @@ Added flags:
   the caps on each request's prompt and output (the JAX real mode's fixed
   128 / 48 / 16).
 
-The copied scheduler prices iterations with the TPU-v5e cost model
-(``perf/hardware.py::V5E``). On a CUDA device each worker is priced as one
-V5E whose ``hbm_bytes`` is the card's memory, so admission and KV/state
-capacity follow the card (a 7B model does not fit V5E's 16 GB); peaks,
-MFU and the interference γ stay V5E's until the calibration slice. On the
-CPU the workers are plain V5Es, as in the JAX real mode. Under
+On a CUDA device each worker is priced as one ``perf.cards.H100`` (the
+card's data-sheet peaks, the assumed efficiency fractions) whose
+``hbm_bytes`` is the card's own memory, so admission, slack-bounded
+chunks, trace SLOs and KV/state capacity follow the card. The launcher
+does not calibrate at start-up, as the JAX one does not:
+``perf.calibrate.calibrate_hardware(H100)`` measures the fractions. On the
+CPU the workers are plain V5Es (``perf/hardware.py``), as in the JAX real
+mode, so scheduling decisions there equal the JAX package's. Under
 ``clock="wall"`` iteration durations are the device's. Sim mode,
 ``--trace-csv`` and ``--backend trace-replay`` wait for a later slice
 (ROADMAP.md).
@@ -180,9 +182,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "cumulative-time entries to stderr")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the model (default cuda); on a "
-                         "CUDA device each worker is priced as a V5E with "
-                         "the card's memory (peaks, MFU and gamma stay "
-                         "V5E's until the calibration slice)")
+                         "CUDA device each worker is priced as an H100 with "
+                         "the card's memory, on the CPU as a TPU v5e")
     ap.add_argument("--size", default="smoke", choices=["smoke", "full"],
                     help="reduced config (as JAX real mode) or full width")
     ap.add_argument("--max-len", type=int, default=128,
@@ -221,7 +222,7 @@ def run(argv: Optional[Sequence[str]] = None):
     import torch
 
     from repro_torch.configs import get_config, get_smoke
-    from repro_torch.perf import V5E, WorkerSpec
+    from repro_torch.perf import H100, V5E, WorkerSpec
     from repro_torch.serving.executor import ClusterRealExecutors
     from repro_torch.serving.simulator import build_cluster
     from repro_torch.workload import SCENARIOS, generate_trace, get_scenario
@@ -245,7 +246,7 @@ def run(argv: Optional[Sequence[str]] = None):
         else get_smoke(args.arch)
     device = torch.device(args.device)
     hw = V5E if device.type != "cuda" else dataclasses.replace(
-        V5E, hbm_bytes=float(torch.cuda.get_device_properties(
+        H100, hbm_bytes=float(torch.cuda.get_device_properties(
             device).total_memory))
     sim, cost = build_cluster(
         cfg, args.policy, n_workers=args.workers,

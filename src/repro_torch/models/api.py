@@ -1,6 +1,7 @@
 """Uniform model API, as in ``repro/models/api.py``, for the families the
-port carries so far: dense transformers without a sliding window or an
-fp8 KV cache, and rwkv6.
+port carries so far: dense transformers (sliding windows and post-norms
+included, with the uniform cache: neither the fp8 KV cache nor gemma2's
+ring cache yet), and rwkv6.
 
   init(gen)                                  -> params (on gen.device)
   init_cache(batch, max_len, device)         -> dense: {"k","v"} (L,B,S,Hkv,D);
@@ -42,12 +43,16 @@ def build(cfg: ModelConfig) -> ModelAPI:
             prefill=lambda p, c, t, l: rwkv6.prefill(p, c, t, l, cfg),
             decode=lambda p, c, t, l: rwkv6.decode(p, c, t, l, cfg),
         )
-    if (cfg.family != "dense" or cfg.sliding_window is not None
-            or cfg.kv_cache_quant or cfg.use_post_norms):
+    # the JAX package's ``transformer._use_ring``: gemma2's window-sized
+    # ring cache, a per-layer cache the port does not carry yet
+    ring = cfg.window_sized_cache and cfg.local_global_alternating \
+        and not cfg.scan_layers
+    if cfg.family != "dense" or cfg.kv_cache_quant or ring:
         raise NotImplementedError(
-            f"{cfg.name}: the PyTorch port serves dense models without a "
-            "sliding window, fp8 KV cache or post-norms, and rwkv6, so far; "
-            "the other families come with later slices (ROADMAP.md)")
+            f"{cfg.name}: the PyTorch port serves dense models without an "
+            "fp8 KV cache or a ring cache, and rwkv6, so far; the other "
+            "families and cache variants come with later slices "
+            "(ROADMAP.md)")
     return ModelAPI(
         cfg=cfg,
         init=lambda gen: transformer.init_lm(gen, cfg),

@@ -19,7 +19,8 @@ from repro_torch.models.layers import ModelConfig
 _KEYS = {
     "dense": {
         "embed": {"table", "unembed"},
-        "blocks": {"norm_attn", "attn", "norm_mlp", "mlp"},
+        "blocks": {"norm_attn", "attn", "norm_mlp", "mlp", "norm_attn_post",
+                   "norm_mlp_post"},
         "final_norm": {"scale", "bias"},
     },
     "rwkv": {

@@ -207,9 +207,11 @@ class MaskSpec:
       * "lengths" — decode: kpos <= lengths[b] (lengths is (B,))
       * "chunk"   — chunked prefill: query i of the chunk sits at
                     lengths[b] + i and attends to kpos <= that
-    ``window``: additionally restrict to kpos > qpos - window.
-    The "full" and "ring" kinds of the JAX package wait for the whisper
-    and gemma2 slices (see ROADMAP.md).
+    ``window``: additionally restrict to kpos > qpos - window ("lengths":
+    kpos > lengths[b] - window).
+    The JAX package's "full" kind waits for the whisper slice, and its
+    "ring" kind (gemma2's window-sized cache) for the cache variants
+    (see ROADMAP.md).
     """
     kind: str = "causal"
     window: Optional[int] = None
@@ -238,9 +240,10 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
       chunk's first position (0 + q_offset for "causal");
     * "lengths" (decode, S == 1): ``paged_attention_op`` over the cache
       viewed as pages with an identity block table. The model's
-      ``lengths`` is the write position (the mask is ``kpos <= lengths``),
-      the kernel's counts tokens including the new one, hence
-      ``lengths + 1``.
+      ``lengths`` is the write position (the mask is ``kpos <= lengths``
+      and, under a window, ``kpos > lengths - window``), the kernel's
+      counts tokens including the new one, hence ``lengths + 1``; its
+      window keeps keys from ``lengths + 1 - window`` on, the same set.
     """
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])
@@ -258,12 +261,8 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
     _cache_write(v_cache, v, cache_positions)
 
     if mask.kind == "lengths":
-        if mask.window is not None:
-            raise NotImplementedError(
-                "the decode kernel takes no sliding window yet; gemma2's "
-                "slice adds it (ROADMAP.md)")
         out = _decode_attention(q[:, 0], k_cache, v_cache, lengths + 1,
-                                cfg.attn_softcap)[:, None]
+                                cfg.attn_softcap, mask.window)[:, None]
     elif mask.kind in ("causal", "chunk"):
         if mask.kind == "causal":
             starts = torch.full((x.shape[0],), mask.q_offset,
@@ -287,7 +286,7 @@ def decode_page_size(max_len: int) -> int:
     return math.gcd(max_len, 64)
 
 
-def _decode_attention(q, k_cache, v_cache, lengths, softcap):
+def _decode_attention(q, k_cache, v_cache, lengths, softcap, window=None):
     """q (B, Hq, D) over a dense (B, S, Hkv, D) cache through the paged
     decode op: pages of ``decode_page_size(S)`` tokens, block table
     ``[b*P, b*P+P)`` for row b."""
@@ -299,7 +298,8 @@ def _decode_attention(q, k_cache, v_cache, lengths, softcap):
     k_pages = k_cache.view(b * n_pp, ps, hkv, d)
     v_pages = v_cache.view(b * n_pp, ps, hkv, d)
     return ops.paged_attention_op(q, k_pages, v_pages, tables,
-                                  lengths.to(torch.int32), softcap=softcap)
+                                  lengths.to(torch.int32), softcap=softcap,
+                                  window=window)
 
 
 def _cache_write(cache: torch.Tensor, new: torch.Tensor,

@@ -3,8 +3,10 @@
 Counterpart of ``repro/models/transformer.py``. Parameters keep the JAX
 package's pytree: ``blocks`` holds every layer's weights stacked along a
 leading layer axis, and ``lax.scan`` over layers becomes a Python loop
-over that axis. Ring caches, the fp8 KV cache, MoE, VLM prefixes and
-post-norms wait for later slices (ROADMAP.md).
+over that axis. gemma2's local/global sliding windows (the per-layer
+window of ``layer_windows_py``, in both attention kernels) and sandwich
+post-norms are carried; its ring cache, the fp8 KV cache, MoE and VLM
+prefixes wait for later slices (ROADMAP.md).
 
 Entry points:
   init_lm(gen, cfg)                               -> params
@@ -43,6 +45,9 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig):
         "norm_mlp": L.init_norm(cfg, dev, stack=n),
         "mlp": L.init_mlp(gen, cfg, stack=n),
     }
+    if cfg.use_post_norms:
+        blocks["norm_attn_post"] = L.init_norm(cfg, dev, stack=n)
+        blocks["norm_mlp_post"] = L.init_norm(cfg, dev, stack=n)
     return {"embed": L.init_embedding(gen, cfg), "blocks": blocks,
             "final_norm": L.init_norm(cfg, dev)}
 
@@ -83,9 +88,14 @@ def _block_fn(bp, x, cfg: ModelConfig, *, positions, mask: MaskSpec, window,
     attn_out, new_kv = L.apply_attention(
         bp["attn"], h, cfg, positions=positions, mask=mask, kv_cache=kv,
         cache_positions=cache_positions, lengths=lengths)
+    if "norm_attn_post" in bp:
+        attn_out = L.apply_norm(bp["norm_attn_post"], attn_out, cfg)
     x = x + attn_out
     h = L.apply_norm(bp["norm_mlp"], x, cfg)
-    return x + L.apply_mlp(bp["mlp"], h, cfg), new_kv
+    mlp_out = L.apply_mlp(bp["mlp"], h, cfg)
+    if "norm_mlp_post" in bp:
+        mlp_out = L.apply_norm(bp["norm_mlp_post"], mlp_out, cfg)
+    return x + mlp_out, new_kv
 
 
 def _run_blocks(params, x, cfg: ModelConfig, *, positions, mask, cache,

@@ -23,7 +23,12 @@ One subsystem owns every step-time estimate in the stack:
 ``serving/costmodel.py`` and ``core/predictor.py`` remain as import shims
 so every pre-existing call site keeps working unchanged.
 """
+from repro_torch.perf.calibrate import (CalibratedRooflineBackend,
+                                  InterferenceCalibration,
+                                  KernelCalibration, calibrate_hardware,
+                                  calibrate_interference)
 from repro_torch.perf.calibration import OnlinePredictor
+from repro_torch.perf.cards import H100
 from repro_torch.perf.hardware import (V5E, HardwareSpec, InterferenceTable,
                                  WorkerSpec, gamma_at, gamma_at_batch)
 from repro_torch.perf.model import (STATE_TOKEN_EQUIV, CostModel,
@@ -36,12 +41,13 @@ from repro_torch.perf.predictor import (AnalyticalPredictor, BiasedPredictor,
 from repro_torch.perf.recalibrate import DriftMonitor
 
 __all__ = [
-    "AnalyticalPredictor", "BiasedPredictor",
-    "ClusterPredictor", "CostModel", "DriftMonitor", "HardwareSpec",
-    "InterferenceTable", "IterationCostModel",
-    "ModelCostSpec", "OnlinePredictor", "Predictor",
+    "AnalyticalPredictor", "BiasedPredictor", "CalibratedRooflineBackend",
+    "ClusterPredictor", "CostModel", "DriftMonitor", "H100",
+    "HardwareSpec",
+    "InterferenceCalibration", "InterferenceTable", "IterationCostModel",
+    "KernelCalibration", "ModelCostSpec", "OnlinePredictor", "Predictor",
     "ProfiledPredictor", "STATE_TOKEN_EQUIV", "V5E", "WorkerSpec",
-    "build_cost_spec",
+    "build_cost_spec", "calibrate_hardware", "calibrate_interference",
     "canonical_iteration_time", "gamma_at", "gamma_at_batch",
     "profile_worker", "relative_speeds",
 ]

@@ -2,10 +2,11 @@
 on the CPU) against the JAX package's oracles and its Pallas kernels in
 interpret mode, on the same numpy inputs; plain emulations of the
 tensor-core prefill kernel's and the split decode kernel's arithmetic
-against the JAX oracles; the ops' routing; and the device kernel names the
-wrappers export. The Hopper
-kernels themselves are held against the plain versions on the card by
-chip_smoke.py."""
+against the JAX oracles; the windowed decode (the port's own: the Pallas
+decode kernel takes no window) against the JAX model's masked attention;
+the ops' routing; and the device kernel names the wrappers export. The
+Hopper kernels themselves are held against the plain versions on the card
+by chip_smoke.py."""
 import math
 import re
 
@@ -19,6 +20,7 @@ import numpy as np  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.chunked_prefill import chunked_prefill_attention  # noqa: E402
 from repro.kernels.paged_attention import paged_attention  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import chunked_prefill as tchunk  # noqa: E402
 from repro_torch.kernels import paged_attention as tpaged  # noqa: E402
@@ -189,11 +191,13 @@ def test_tensor_core_prefill_numerics_match_jax(b, sq, hq, hkv, d, smax,
 
 
 def _split_decode_emulation(q, k_pages, v_pages, block_tables, lengths, *,
-                            splits, softcap=None):
+                            splits, softcap=None, window=None):
     """The arithmetic of ``csrc/paged_attention.cu`` in plain torch. Each
-    (b, kv-head) splits the pages holding its ``len`` tokens into
-    ``splits`` runs of whole pages (at least one a split; splits past the
-    length are empty); in a split, warp w of 4 takes key tiles w, w + 4,
+    (b, kv-head) splits the pages holding its tokens [first, len) (first =
+    len - window under a window, else 0) into ``splits`` runs of whole
+    pages (at least one a split; splits past the length are empty; the
+    first split starts at ``first``); in a split, warp w of 4 takes key
+    tiles w, w + 4,
     ... and keeps its own online softmax (m, l, acc) in f32; every (split,
     warp) partial is merged in f32, and an empty one (m = -inf) weighs 0.
     bf16 at D = 64 / 128 is the tensor-core variant (16-key tiles, P
@@ -213,11 +217,14 @@ def _split_decode_emulation(q, k_pages, v_pages, block_tables, lengths, *,
         rows = block_tables[bi].long().clamp_min(0)[tok // ps]
         k = k_pages[rows, tok % ps].float()                  # (P*ps, Hkv, D)
         v = v_pages[rows, tok % ps].float()
-        pages = -(-n // ps)
+        first = max(0, n - window) if window else 0
+        p0 = first // ps
+        pages = -(-n // ps) - p0
         per = max(1, -(-pages // splits))                  # pages a split
         parts = []
         for s in range(splits):
-            lo, hi = s * per * ps, min(n, (s + 1) * per * ps)
+            lo = max(first, (p0 + s * per) * ps)
+            hi = min(n, (p0 + (s + 1) * per) * ps)
             for w in range(warps):
                 m = torch.full((hkv, g), -math.inf)
                 l = torch.zeros((hkv, g))
@@ -283,6 +290,70 @@ def test_split_decode_numerics_match_jax(b, hq, hkv, d, ps, mp, dtype,
                                 interpret=True), dtype)
 
 
+# windowed decode: (b, hq, hkv, d, page, max_pages, dtype, lengths,
+# softcap, window, splits); lengths on both sides of the window, with
+# len - window on a page boundary, inside a page and at 0
+WINDOW_SWEEP = [
+    (4, 12, 2, 128, 16, 8, "bfloat16", [1, 40, 56, 128], None, 40, None),
+    (3, 8, 4, 256, 16, 4, "float32", [10, 33, 64], 50.0, 16, 5),  # gemma2
+    (2, 8, 4, 256, 16, 4, "bfloat16", [64, 50], 50.0, 20, None),
+    (2, 12, 2, 128, 16, 8, "bfloat16", [100, 128], None, 1, 8),
+    (2, 4, 4, 64, 32, 4, "float32", [128, 97], None, 96, 3),
+    (2, 16, 2, 64, 16, 4, "bfloat16", [60, 33], 30.0, 24, 4),
+]
+
+
+def _dense(pages, tables):
+    """(B, P * ps, Hkv, D): each request's pages gathered in table order."""
+    b, mp = tables.shape
+    return pages[tables].reshape(b, mp * pages.shape[1], *pages.shape[2:])
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,d,ps,mp,dtype,lengths,softcap,window,splits", WINDOW_SWEEP)
+def test_windowed_paged_ref_matches_jax(b, hq, hkv, d, ps, mp, dtype,
+                                        lengths, softcap, window, splits):
+    """The plain windowed decode against the JAX model's XLA attention
+    under ``MaskSpec("lengths", window)`` (its lengths: the write
+    position, one less) and against the JAX prefill oracle on a one-token
+    chunk at that position."""
+    (qj, qt), (kj, kt), (vj, vt), (bj, bt), (lj, lt) = _mk_paged(
+        5, b, hq, hkv, d, ps, mp, dtype, lengths=lengths)
+    got = ref.paged_attention_ref(qt, kt, vt, bt, lt, softcap=softcap,
+                                  window=window)
+    kd, vd = _dense(kj, bj), _dense(vj, bj)
+    xla = JL.attention_scores(qj[:, None], kd, vd,
+                              JL.MaskSpec("lengths", window=window),
+                              attn_softcap=softcap, lengths=lj - 1)
+    _close(got, xla[:, 0], dtype)
+    one = jref.chunked_prefill_attention_ref(qj[:, None], kd, vd, lj - 1,
+                                             softcap=softcap, window=window)
+    _close(got, one[:, 0], dtype)
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,d,ps,mp,dtype,lengths,softcap,window,splits", WINDOW_SWEEP)
+def test_windowed_split_decode_numerics_match_jax(b, hq, hkv, d, ps, mp,
+                                                  dtype, lengths, softcap,
+                                                  window, splits):
+    """The kernel's split of [len - window, len) (the first split starting
+    inside a page), merged in f32, against the JAX one-token oracle and the
+    port's plain version."""
+    (qj, qt), (kj, kt), (vj, vt), (bj, bt), (lj, lt) = _mk_paged(
+        6, b, hq, hkv, d, ps, mp, dtype, lengths=lengths)
+    got = _split_decode_emulation(
+        qt, kt, vt, bt, lt, softcap=softcap, window=window,
+        splits=splits or _kernel_splits(b, hkv, mp))
+    one = jref.chunked_prefill_attention_ref(
+        qj[:, None], _dense(kj, bj), _dense(vj, bj), lj - 1,
+        softcap=softcap, window=window)
+    _close(got, one[:, 0], dtype)
+    torch.testing.assert_close(
+        got.float(), ref.paged_attention_ref(
+            qt, kt, vt, bt, lt, softcap=softcap, window=window).float(),
+        **TOL[dtype])
+
+
 def test_split_decode_length_zero_gives_zero():
     """A request of length 0 has only empty splits; the kernel returns 0
     (the oracles' uniform softmax over masked keys is not compared)."""
@@ -314,6 +385,9 @@ def test_ops_route_cpu_tensors_to_the_plain_versions(monkeypatch):
     args = _paged_inputs()
     torch.testing.assert_close(ops.paged_attention_op(*args, softcap=5.0),
                                ref.paged_attention_ref(*args, softcap=5.0),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(ops.paged_attention_op(*args, window=3),
+                               ref.paged_attention_ref(*args, window=3),
                                rtol=0, atol=0)
     q = torch.randn((2, 8, 4, 64))
     kc = torch.randn((2, 32, 2, 64))

@@ -47,7 +47,7 @@ def _models(arch):
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-7b",
                                   "stablelm-1.6b", "internlm-20b",
-                                  "rwkv6-7b"])
+                                  "rwkv6-7b", "gemma2-2b"])
 def test_configs_match_the_jax_package(arch):
     from repro.configs import get_config as jax_config
     for get_t, get_j in ((get_config, jax_config), (get_smoke, jax_smoke)):
@@ -60,9 +60,9 @@ def test_configs_match_the_jax_package(arch):
 
 def test_unported_archs_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("gemma2-2b")
+        get_config("arctic-480b")
     import dataclasses
-    cfg = dataclasses.replace(get_smoke("qwen2-1.5b"), sliding_window=8)
+    cfg = dataclasses.replace(get_smoke("qwen2-1.5b"), kv_cache_quant=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tapi.build(cfg)
 

@@ -1,8 +1,9 @@
 """PyTorch port, its rules: nothing under src/repro_torch/ (nor
 chip_smoke.py) imports jax or the JAX package; each carried-over module
 equals its src/repro original with ``repro.`` replaced by
-``repro_torch.``, apart from two reviewed deltas; entry points need a card
-unless the caller asks for the CPU."""
+``repro_torch.``, apart from two reviewed deltas (``perf/__init__.py``
+adds the card's spec, ``serving/kvcache.py`` drops the paged store);
+entry points need a card unless the caller asks for the CPU."""
 import ast
 from pathlib import Path
 
@@ -25,10 +26,6 @@ CARRIED = [
     "workload/__init__.py", "workload/profiles.py", "workload/arrivals.py",
     "workload/scenario.py", "workload/csvio.py",
 ]
-# the two reviewed deltas
-CALIBRATE_NAMES = {"CalibratedRooflineBackend", "InterferenceCalibration",
-                   "KernelCalibration", "calibrate_hardware",
-                   "calibrate_interference"}
 
 
 def _carried(rel: str) -> str:
@@ -60,15 +57,20 @@ def test_carried_over_module_equals_its_original(rel):
 
 
 def test_perf_init_drops_only_calibrate():
-    want = ast.parse(_carried("perf/__init__.py"))
-    want.body = [n for n in want.body if not (
-        isinstance(n, ast.ImportFrom)
-        and n.module == "repro_torch.perf.calibrate")]
-    for n in want.body:
-        if isinstance(n, ast.Assign) and n.targets[0].id == "__all__":
-            n.value.elts = [e for e in n.value.elts
-                            if e.value not in CALIBRATE_NAMES]
+    """The first reviewed delta: ``perf/__init__.py`` is the JAX package's
+    (calibrate included, since the port has its own ``perf/calibrate.py``)
+    plus the import and the name of the card's spec, ``H100``."""
     got = ast.parse((PORT / "perf/__init__.py").read_text())
+    added = [n for n in got.body if isinstance(n, ast.ImportFrom)
+             and n.module == "repro_torch.perf.cards"]
+    assert [[a.name for a in n.names] for n in added] == [["H100"]]
+    got.body = [n for n in got.body if n not in added]
+    for n in got.body:
+        if isinstance(n, ast.Assign) and n.targets[0].id == "__all__":
+            names = [e.value for e in n.value.elts]
+            assert names.count("H100") == 1
+            n.value.elts = [e for e in n.value.elts if e.value != "H100"]
+    want = ast.parse(_carried("perf/__init__.py"))
     assert ast.dump(got) == ast.dump(want)
 
 
