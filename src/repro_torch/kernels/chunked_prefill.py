@@ -13,10 +13,12 @@ cache prefix [0, starts[b] + i]; the chunk's own K/V are already written.
 
 Unlike the Pallas kernel, ragged Sq and Smax are masked, not asserted.
 The library picks one of two device kernels from (dtype, D) alone: the
-tensor-core one for bf16 at D = 64 or 128, the CUDA-core f32 one otherwise.
-``launches`` counts the wrapper's launches in this process and
-``launches_by_variant`` splits them by device kernel; ``KERNELS`` names the
-device kernels (as ``torch.profiler`` reports them) by variant.
+tensor-core one for bf16 at a D of ``TENSOR_CORE_HEAD_DIMS``, the CUDA-core
+f32 one otherwise. ``launches`` counts the wrapper's launches in this
+process and ``launches_by_variant`` splits them by device kernel;
+``KERNELS`` names the device kernels (as ``torch.profiler`` reports them)
+by variant; ``splits`` gives the blocks of a cluster that split each block
+of queries' keys in a call of given sizes (more than 1 only at D = 256).
 """
 from __future__ import annotations
 
@@ -25,8 +27,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import (CudaLibrary, check_cuda_inputs,
-                                       check_head_dim, require, stream_handle)
+from repro_torch.kernels.build import (DTYPE_CODES, CudaLibrary,
+                                       check_cuda_inputs, check_head_dim,
+                                       require, stream_handle)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLibrary("chunked_prefill.cu", {
@@ -34,13 +37,25 @@ LIB = CudaLibrary("chunked_prefill.cu", {
                                                      _P],
     "chunked_prefill_max_group": [_I],
     "chunked_prefill_variant": [_I, _I],
+    "chunked_prefill_splits": [_I] * 8,
 })
 KERNELS = {"cuda_core": "chunked_prefill_kernel",
            "tensor_core": "chunked_prefill_mma_kernel"}
 _VARIANTS = ("cuda_core", "tensor_core")   # chunked_prefill_variant's codes
+# head dims whose bf16 inputs go to the tensor-core kernel
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 
 launches = 0
 launches_by_variant = dict.fromkeys(KERNELS, 0)
+
+
+def splits(b: int, sq: int, hq: int, hkv: int, d: int, smax: int,
+           window: Optional[int], dtype: torch.dtype) -> int:
+    """Blocks of a cluster that split each block of queries' key tiles in
+    a call of these sizes."""
+    return LIB.lib().chunked_prefill_splits(b, sq, hq, hkv, d, smax,
+                                            int(window or 0),
+                                            DTYPE_CODES[dtype])
 
 
 def chunked_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -159,4 +159,19 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// SMs of the current device, read once per device (the launchers size
+// their grids by it on every call).
+inline int card_sms() {
+  constexpr int kDevices = 64;
+  static int cached[kDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < kDevices && cached[dev] > 0) return cached[dev];
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  sms = sms > 0 ? sms : 1;
+  if (dev >= 0 && dev < kDevices) cached[dev] = sms;
+  return sms;
+}
+
 }  // namespace rt

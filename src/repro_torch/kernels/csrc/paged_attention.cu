@@ -55,10 +55,13 @@
 // Two variants of the block's arithmetic; the launcher picks one from
 // (dtype, D) alone (`paged_attention_variant`), never because the other
 // failed.
-// * `paged_attention_mma_kernel`, bf16 at D = 64 or 128 (every dense config
+// * `paged_attention_mma_kernel`, bf16 at D = 64, 128 or 256 (every config
 //   of the port): tensor cores with the keys on M and the query heads on N
 //   ("swap AB"), so G = 6 pads to 8 columns, not 16 rows, and G <= 16
-//   takes two n-tiles. A warp tile is 16 keys: S^T = K Q^T
+//   takes two n-tiles (at D = 256 G <= 8, one n-tile: the O^T accumulator
+//   is then 64 f32 registers a thread, as at D = 128 with two n-tiles, and
+//   Q, the table, the partials and the rings take about 97 KB of shared
+//   memory, so clusters of 16 fit). A warp tile is 16 keys: S^T = K Q^T
 //   (mma.sync.m16n8k16, K by ldmatrix from the ring, Q^T fragments held in
 //   registers), the online softmax in f32 down each column (one query head),
 //   then O^T += V^T P^T with P rounded to bf16 (as the prefill kernel rounds
@@ -271,6 +274,11 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
                            const int* __restrict__ lengths, bf16* __restrict__ out, int hq,
                            int hkv, int ps, int max_pages, float scale, float softcap,
                            int window) {
+  // a tile's rescale (64 FMULs a lane at D = 256) and softcap cost about as
+  // much as its products: the softcap takes two MUFU operations, and at
+  // D = 256 a tile that raises no head's max skips the rescale (at D = 128
+  // the skip made one slot 1.02-1.03x slower; PERF.md §6)
+  constexpr bool W = D > 128;
   constexpr int S = mma_stride<D>();
   constexpr int CH = D / 8;      // 16-byte chunks per row
   constexpr int KD = D / 16;     // k-steps of K Q^T, and 16-row tiles of O^T
@@ -388,7 +396,7 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[nt][e] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        if (softcap > 0.f) x = rt::soft_cap_fast(x, softcap, 2.f / softcap);
         x = (e < 2 ? ok_lo : ok_hi) ? x : -INFINITY;
         s[nt][e] = x;
         mx[e & 1] = fmaxf(mx[e & 1], x);
@@ -401,10 +409,12 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
         const float alpha = mn == -INFINITY ? 1.f : __expf(m[nt][j] - mn);
         m[nt][j] = mn;
         l[nt][j] *= alpha;
+        if (!W || __any_sync(rt::kFull, alpha != 1.f)) {
 #pragma unroll
-        for (int dt = 0; dt < KD; ++dt) {
-          acc[dt][nt][j] *= alpha;
-          acc[dt][nt][j + 2] *= alpha;
+          for (int dt = 0; dt < KD; ++dt) {
+            acc[dt][nt][j] *= alpha;
+            acc[dt][nt][j + 2] *= alpha;
+          }
         }
       }
 #pragma unroll
@@ -578,16 +588,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
 // ------------------------------------------------- launch
 
-int card_sms() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 1;
-}
-
 // S: blocks per (b, kv-head), as many as fill the card's SMs.
 int choose_splits(int pairs, int max_pages, int cap) {
-  const int s = min(card_sms() / max(pairs, 1), min(cap, max_pages));
+  const int s = min(rt::card_sms() / max(pairs, 1), min(cap, max_pages));
   return max(s, 1);
 }
 
@@ -695,13 +698,14 @@ cudaError_t launch_core(const Call& c, int splits) {
                          1.f / sqrtf(static_cast<float>(c.d)), c.softcap, c.window);
 }
 
-int variant(int d, int dtype) { return dtype == 1 && (d == 64 || d == 128); }
+int variant(int d, int dtype) { return dtype == 1 && (d == 64 || d == 128 || d == 256); }
 
-// The cluster limit of the kernel (d, dtype, g) goes to.
+// The cluster limit of the kernel (d, dtype, g) goes to (G <= 8 at D = 256).
 int cap_for(int d, int dtype, int g) {
   if (!variant(d, dtype)) return kPortableCluster;
   if (d == 64) return g <= 8 ? mma_cap<64, 1>() : mma_cap<64, 2>();
-  return g <= 8 ? mma_cap<128, 1>() : mma_cap<128, 2>();
+  if (d == 128) return g <= 8 ? mma_cap<128, 1>() : mma_cap<128, 2>();
+  return mma_cap<256, 1>();
 }
 
 }  // namespace
@@ -728,7 +732,8 @@ extern "C" int paged_attention_launch(const void* q, const void* kp, const void*
   cudaError_t err;
   if (variant(d, dtype)) {
     if (d == 64) err = g <= 8 ? launch_mma<64, 1>(c, splits) : launch_mma<64, 2>(c, splits);
-    else err = g <= 8 ? launch_mma<128, 1>(c, splits) : launch_mma<128, 2>(c, splits);
+    else if (d == 128) err = g <= 8 ? launch_mma<128, 1>(c, splits) : launch_mma<128, 2>(c, splits);
+    else err = launch_mma<256, 1>(c, splits);
   } else if (dtype == 1) {
     if (ncp == 1) err = launch_core<bf16, 1>(c, splits);
     else if (ncp == 2) err = launch_core<bf16, 2>(c, splits);

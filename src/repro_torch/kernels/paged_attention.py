@@ -19,7 +19,8 @@ XLA); the port's decode goes through this kernel, hence the window here.
 Each call is one launch: a thread-block cluster of S blocks per (b, kv-head)
 splits the request's pages and merges its partials in the same kernel.
 The library picks one of two device kernels from (dtype, D) alone: the
-tensor-core one for bf16 at D = 64 or 128, the CUDA-core f32 one otherwise.
+tensor-core one for bf16 at a D of ``TENSOR_CORE_HEAD_DIMS``, the CUDA-core
+f32 one otherwise.
 ``launches`` counts the wrapper's launches in this process and
 ``launches_by_variant`` splits them by device kernel; ``KERNELS`` names the
 device kernels (as ``torch.profiler`` reports them) by variant;
@@ -48,6 +49,8 @@ LIB = CudaLibrary("paged_attention.cu", {
 KERNELS = {"cuda_core": "paged_attention_kernel",
            "tensor_core": "paged_attention_mma_kernel"}
 _VARIANTS = ("cuda_core", "tensor_core")   # paged_attention_variant's codes
+# head dims whose bf16 inputs go to the tensor-core kernel
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 
 launches = 0
 launches_by_variant = dict.fromkeys(KERNELS, 0)

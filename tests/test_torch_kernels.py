@@ -7,8 +7,10 @@ decode kernel takes no window) against the JAX model's masked attention;
 the ops' routing; and the device kernel names the wrappers export. The
 Hopper kernels themselves are held against the plain versions on the card
 by chip_smoke.py."""
+import ast
 import math
 import re
+from pathlib import Path
 
 import pytest
 
@@ -129,39 +131,83 @@ def test_chunked_ref_matches_jax(b, sq, hq, hkv, d, smax, window, softcap,
 
 
 def _mma_prefill_emulation(q, k_cache, v_cache, starts, softcap=None,
-                           window=None, tile=64):
+                           window=None, tile=64, splits=1):
     """The arithmetic of ``chunked_prefill_mma_kernel`` in plain torch: bf16
     Q, K, V; f32 scores (softcap before the mask); an online softmax in f32
-    over 64-key tiles in which a masked key gets weight 0; P rounded to
-    bf16 for P V, accumulated in f32; a row with no valid key gives 0."""
+    over ``tile``-key tiles in which a masked key gets weight 0; P rounded
+    to bf16 for P V, accumulated in f32; a row with no valid key gives 0.
+    Each block of 64 // G queries walks its tiles from the window floor to
+    its causal frontier in ``splits`` runs, each with its own online
+    softmax, merged in f32 (weights e^(m_p - m) / l; a run that saw no key
+    weighs 0)."""
     b, sq, hq, d = q.shape
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
+    bq = min(sq, 64 // g)
     qf = q.bfloat16().float().reshape(b, sq, hkv, g, d)
     kf, vf = k_cache.bfloat16().float(), v_cache.bfloat16().float()
-    qpos = starts.long()[:, None] + torch.arange(sq)[None]        # (B, Sq)
-    m = torch.full((b, hkv, g, sq), -math.inf)
-    l = torch.zeros((b, hkv, g, sq))
-    acc = torch.zeros((b, hkv, g, sq, d))
-    for k0 in range(0, smax, tile):
-        kt, vt = kf[:, k0:k0 + tile], vf[:, k0:k0 + tile]
-        s = torch.einsum("bqhgd,bshd->bhgqs", qf, kt) / math.sqrt(d)
-        if softcap is not None:
-            s = softcap * torch.tanh(s / softcap)
-        kpos = torch.arange(k0, k0 + kt.shape[1])
-        ok = kpos[None, None] <= qpos[:, :, None]                 # (B, Sq, t)
-        if window is not None:
-            ok = ok & (kpos[None, None] > qpos[:, :, None] - window)
-        s = torch.where(ok[:, None, None], s, -math.inf)
-        m_new = torch.maximum(m, s.amax(-1))
-        alpha = torch.where(m_new == -math.inf, 1.0, torch.exp(m - m_new))
-        p = torch.where(s == -math.inf, 0.0, torch.exp(s - m_new[..., None]))
-        l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhgqs,bshd->bhgqd", p.bfloat16().float(), vt)
-        m = m_new
-    out = acc / l.clamp_min(1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).bfloat16()
+    out = torch.zeros((b, sq, hkv, g, d))
+    for bi in range(b):
+        for q0 in range(0, sq, bq):
+            qpos = int(starts[bi]) + q0 + torch.arange(min(bq, sq - q0))
+            hi = min(smax, int(qpos[-1]) + 1)
+            lo = max(0, int(qpos[0]) - window + 1) if window else 0
+            kt_lo = lo // tile * tile
+            n = max(0, -(-(hi - kt_lo) // tile))
+            per = -(-n // splits)
+            parts = []
+            for sp in range(splits):
+                t0, t1 = min(n, sp * per), min(n, (sp + 1) * per)
+                qb = qf[bi, q0:q0 + len(qpos)]                # (nq, Hkv, G, D)
+                m = torch.full((len(qpos), hkv, g), -math.inf)
+                l = torch.zeros((len(qpos), hkv, g))
+                acc = torch.zeros((len(qpos), hkv, g, d))
+                for k0 in range(kt_lo + t0 * tile, kt_lo + t1 * tile, tile):
+                    kt, vt = kf[bi, k0:k0 + tile], vf[bi, k0:k0 + tile]
+                    s = torch.einsum("qhgd,shd->qhgs", qb, kt) / math.sqrt(d)
+                    if softcap is not None:
+                        s = softcap * torch.tanh(s / softcap)
+                    kpos = torch.arange(k0, k0 + kt.shape[0])
+                    ok = kpos[None] <= qpos[:, None]
+                    if window is not None:
+                        ok = ok & (kpos[None] > qpos[:, None] - window)
+                    s = torch.where(ok[:, None, None], s, -math.inf)
+                    m_new = torch.maximum(m, s.amax(-1))
+                    alpha = torch.where(m_new == -math.inf, 1.0,
+                                        torch.exp(m - m_new))
+                    p = torch.where(s == -math.inf, 0.0,
+                                    torch.exp(s - m_new[..., None]))
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[..., None] + torch.einsum(
+                        "qhgs,shd->qhgd", p.bfloat16().float(), vt)
+                    m = m_new
+                parts.append((m, l, acc))
+            ms, ls, accs = (torch.stack(x) for x in zip(*parts))
+            if splits == 1:
+                res = accs[0] / ls[0].clamp_min(1e-30)[..., None]
+            else:
+                top = ms.amax(0)
+                f = torch.where(ms == -math.inf, 0.0, torch.exp(ms - top))
+                w = f / (ls * f).sum(0).clamp_min(1e-30)
+                res = (accs * w[..., None]).sum(0)
+            out[bi, q0:q0 + len(qpos)] = res
+    return out.reshape(b, sq, hq, d).bfloat16()
+
+
+def _chip_smoke_constant(name):
+    """A literal constant of chip_smoke.py (which exits on import without a
+    CUDA device), read from its source."""
+    src = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    for node in ast.parse(src).body:
+        if isinstance(node, ast.Assign) and \
+                getattr(node.targets[0], "id", None) == name:
+            return ast.literal_eval(node.value)
+    raise KeyError(name)
+
+
+# the prefill launcher's split counts, which chip_smoke.py holds the C
+# function to on the card; the kernel never splits below D = 256
+PREFILL_SPLITS = _chip_smoke_constant("PREFILL_SPLITS")
 
 
 MMA_SWEEP = [
@@ -171,6 +217,12 @@ MMA_SWEEP = [
     (2, 40, 6, 2, 16, 100, 24, 30.0),
     (1, 5, 12, 2, 128, 200, None, None),
     (2, 70, 4, 4, 64, 160, None, None),
+    # gemma2's heads (G = 2, D = 256: 32-key tiles, split key runs): a
+    # global layer (4 runs), a window with both starts (504, 252) past it
+    # (2 runs), a window with one start (297) past it (1 run)
+    (2, 64, 8, 4, 256, 512, None, 50.0),
+    (2, 64, 8, 4, 256, 640, 300, 50.0),
+    (2, 32, 8, 4, 256, 448, 128, 50.0),
 ]
 
 
@@ -178,16 +230,35 @@ MMA_SWEEP = [
 def test_tensor_core_prefill_numerics_match_jax(b, sq, hq, hkv, d, smax,
                                                 window, softcap):
     """bf16 P in P V (as the JAX model casts p to V's dtype) stays within
-    the bf16 tolerance of the f32-P oracle the card holds the kernel to."""
+    the bf16 tolerance of the f32-P oracle the card holds the kernel to; at
+    D = 256 over 32-key tiles in the launcher's split runs, also within it
+    of the Pallas kernel."""
     rng = np.random.default_rng(1)
     qj, qt = _pair(rng.normal(size=(b, sq, hq, d)), "bfloat16")
     kj, kt = _pair(rng.normal(size=(b, smax, hkv, d)), "bfloat16")
     vj, vt = _pair(rng.normal(size=(b, smax, hkv, d)), "bfloat16")
     sj, st = _ints(rng.integers(0, smax - sq + 1, size=(b,)))
-    got = _mma_prefill_emulation(qt, kt, vt, st, softcap=softcap,
-                                 window=window)
+    wide = d == 256
+    got = _mma_prefill_emulation(
+        qt, kt, vt, st, softcap=softcap, window=window,
+        tile=32 if wide else 64,
+        splits=PREFILL_SPLITS[(b, sq, hq, hkv, d, smax, window)] if wide
+        else 1)
     _close(got, jref.chunked_prefill_attention_ref(
         qj, kj, vj, sj, softcap=softcap, window=window), "bfloat16")
+    if wide:
+        _close(got, chunked_prefill_attention(
+            qj, kj, vj, sj, softcap=softcap, window=window, bq=32, bk=64,
+            interpret=True), "bfloat16")
+
+
+def test_prefill_split_table_covers_runs_of_1_2_and_4():
+    """The D = 256 rows above are shapes whose launcher split count
+    chip_smoke.py checks on the card, and between them they merge runs of
+    4, 2 and 1."""
+    wide = [row[:7] for row in MMA_SWEEP if row[4] == 256]
+    assert all(key in PREFILL_SPLITS for key in wide)
+    assert sorted(PREFILL_SPLITS[key] for key in wide) == [1, 2, 4]
 
 
 def _split_decode_emulation(q, k_pages, v_pages, block_tables, lengths, *,
@@ -200,14 +271,14 @@ def _split_decode_emulation(q, k_pages, v_pages, block_tables, lengths, *,
     tiles w, w + 4,
     ... and keeps its own online softmax (m, l, acc) in f32; every (split,
     warp) partial is merged in f32, and an empty one (m = -inf) weighs 0.
-    bf16 at D = 64 / 128 is the tensor-core variant (16-key tiles, P
+    bf16 at D = 64 / 128 / 256 is the tensor-core variant (16-key tiles, P
     rounded to bf16 for P V); other inputs the CUDA-core one (32-key tiles,
     P in f32; the kernel runs 1-4 warps as shared memory allows, which
     changes only the order of the f32 merge). Length 0 gives 0."""
     b, hq, d = q.shape
     ps, hkv = k_pages.shape[1], k_pages.shape[2]
     g, mp = hq // hkv, block_tables.shape[1]
-    mma = q.dtype == torch.bfloat16 and d in (64, 128)
+    mma = q.dtype == torch.bfloat16 and d in tpaged.TENSOR_CORE_HEAD_DIMS
     tile, warps = (16, 4) if mma else (32, 4)
     qf = q.float().reshape(b, hkv, g, d)
     out = torch.zeros((b, hkv, g, d))
@@ -269,6 +340,11 @@ SPLIT_SWEEP = [
     (2, 32, 2, 128, 16, 4, "bfloat16", None, None, 4),       # G = 16
     (2, 12, 2, 128, 16, 4, "bfloat16", None, 30.0, 4),       # softcap
     (3, 12, 2, 128, 16, 4, "float32", [1, 17, 64], 30.0, 5),  # CUDA cores
+    # gemma2 (G = 2, D = 256, softcap 50) on the tensor cores: the serve
+    # step's 8 slots (S = 4) and one slot at 4300 (S = 16)
+    (8, 8, 4, 256, 64, 16, "bfloat16", [300, 420, 96, 512, 280, 333, 64, 450],
+     50.0, None),
+    (1, 8, 4, 256, 64, 68, "bfloat16", [4300], 50.0, None),
 ]
 
 
@@ -300,6 +376,12 @@ WINDOW_SWEEP = [
     (2, 12, 2, 128, 16, 8, "bfloat16", [100, 128], None, 1, 8),
     (2, 4, 4, 64, 32, 4, "float32", [128, 97], None, 96, 3),
     (2, 16, 2, 64, 16, 4, "bfloat16", [60, 33], 30.0, 24, 4),
+    # gemma2's timed decode shapes, bf16 on the tensor cores at the
+    # launcher's S: 8 slots (the window never bites, S = 4), one slot at
+    # 4300 (first key 204, S = 16)
+    (8, 8, 4, 256, 64, 16, "bfloat16", [300, 420, 96, 512, 280, 333, 64, 450],
+     50.0, 4096, None),
+    (1, 8, 4, 256, 64, 68, "bfloat16", [4300], 50.0, 4096, None),
 ]
 
 
@@ -421,6 +503,14 @@ def test_kernel_wrappers_refuse_cpu_tensors(kernel):
             tpaged.paged_attention(q, kp, vp, bt, lengths)
         else:
             tchunk.chunked_prefill_attention(q[:, None], kp, vp, lengths)
+
+
+def test_tensor_core_head_dims_are_one_rule():
+    """Both attention wrappers send bf16 at the same head dims to their
+    tensor-core kernels (chip_smoke.py holds each C variant function to
+    this constant), and gemma2's 256 is one of them."""
+    assert tchunk.TENSOR_CORE_HEAD_DIMS == tpaged.TENSOR_CORE_HEAD_DIMS \
+        == (64, 128, 256)
 
 
 @pytest.mark.parametrize("module", [tchunk, tpaged, twkv],
