@@ -23,10 +23,13 @@ Phases (one line each, a non-zero exit on any failure):
             (attention: bf16 rtol = atol = 2e-2, f32 1e-4, sums run in
             another order; wkv6 against the sequential scan, bf16 and f32
             inputs alike: out rtol = atol = 3e-4, state rtol 3e-4 atol 3e-3,
-            the JAX package's own tolerances), then timed against the plain
-            version, its bound and, for attention, torch's
-            scaled_dot_product_attention on the same work (``time_ms``: the
-            card sleeps before each timed call, so no host time is timed)
+            the JAX package's own tolerances); every attention case runs
+            again with e4m3 K/V (the fp8 cache) at the same tolerances
+            and variant; then timed against the plain version, its bound
+            and, for attention, torch's scaled_dot_product_attention on the
+            same work (``time_ms``: the card sleeps before each timed call,
+            so no host time is timed), the timed attention shapes again
+            with e4m3 K/V (SDPA over bf16 copies, the widening timed apart)
   model     full-width qwen2-1.5b (random weights from a seed): prefill_chunk
             then decode steps through the kernels and through the plain
             attention, logits compared (stated tolerance below)
@@ -35,6 +38,7 @@ Phases (one line each, a non-zero exit on any failure):
             at positions past 4096, so the local layers' window masks
             real keys (tensor-core variants of both attention kernels
             in bf16, CUDA-core ones in f32)
+  model_fp8  the same for full-width qwen2-1.5b with its cache in e4m3
   model_rwkv  the same for full-width rwkv6-7b: prefill then decode steps
             through the wkv6 kernel (each call also checked against the
             plain scan on the same live inputs: within the kernel
@@ -48,8 +52,16 @@ Phases (one line each, a non-zero exit on any failure):
             request's final chunk riding on another's decode, a migration,
             decode on both workers; a slot outside the decode batch must
             keep its state bit for bit
-  profile   torch.profiler over a prefill, a decode and a mixed iteration:
-            wall and device time, idle share, attention vs matmul time
+  graphs    CUDA graphs against eager steps, full-width qwen2-1.5b and
+            gemma2-2b: two workers sharing weights, prefill keys of 1-4
+            rows, decode, mixed iterations and a migration, replayed in an
+            order unlike the capture order, twice; the same on a second
+            cluster run eagerly. Sampled tokens identical, caches within
+            the bf16 model tolerance, launch counts per variant equal;
+            prints captures, their seconds and the graph pool's memory
+  profile   torch.profiler over a prefill, a decode and a mixed iteration,
+            each through the graphs and eagerly: wall and device time,
+            idle share, host ms (wall - device), attention vs matmul time
             (kernels matched by the names the wrappers export; attention
             and wkv6 must show device time); profile_gemma2 the same for
             full-width gemma2-2b
@@ -66,18 +78,25 @@ Phases (one line each, a non-zero exit on any failure):
             qwen2-1.5b under the tropical policy (the dense main path)
   serve_rwkv  the same on full-width rwkv6-7b (the rwkv main path)
   serve_gemma2  the same on full-width gemma2-2b (the windowed path)
+  serve_fp8, serve_gemma2_fp8  the same on qwen2-1.5b and gemma2-2b with
+            the fp8 (e4m3) cache, the config varied as the JAX
+            launch/hillclimb.py varies it (the CLI has no flag for it)
 Each serve phase zeroes the kernels' launch counts just before it and reads
-them just after, per device kernel variant too: the dense path must launch
-the tensor-core prefill and decode kernels, and so must the gemma2 path
-(head_dim 256); the rwkv path both wkv6 kernels.
+them just after, per device kernel variant too (a CUDA graph replay adds
+what its capture counted): the dense paths must launch the tensor-core
+prefill and decode kernels, the gemma2 paths too (head_dim 256); the rwkv
+path both wkv6 kernels. The dense paths' steps are CUDA graph replays.
 
-The last lines are the kernels' JSON record, the nvidia-smi line and
-{"ok": true, "device": {...}}. Without a CUDA device, or without the
-repository beside it, the script exits non-zero and prints no result.
+The last lines are the kernels' JSON record, the run's seconds, the
+nvidia-smi line and {"ok": true, "device": {...}}. Without a CUDA device,
+or without the repository beside it, the script exits non-zero and prints
+no result.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 import json
 import math
 import re
@@ -86,6 +105,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -97,20 +117,23 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.request import Request, SLOSpec  # noqa: E402
 from repro_torch.kernels import (build, chunked_prefill, ops,  # noqa: E402
                                  paged_attention, ref, wkv6)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
-from repro_torch.models.layers import decode_page_size  # noqa: E402
+from repro_torch.models.layers import decode_page_size, to_e4m3  # noqa: E402
 from repro_torch.perf import H100, CostModel, WorkerSpec  # noqa: E402
 from repro_torch.perf.calibrate import (calibrate_hardware,  # noqa: E402
                                         calibrate_interference)
 from repro_torch.serving.engine import IterationPlan  # noqa: E402
+from repro_torch.serving import executor as texec  # noqa: E402
 from repro_torch.serving.executor import ClusterRealExecutors  # noqa: E402
 
 DEV = torch.device("cuda")
+E4M3 = torch.float8_e4m3fn
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -208,7 +231,8 @@ def phase_device() -> str:
 
 
 def _kernel_label(mangled: str) -> str:
-    """``wkv6_chunk_kernel<bf16,32>`` from the mangled name of a kernel
+    """``wkv6_chunk_kernel<bf16,32>`` (or ``..._kernel<128,e4m3>``) from the
+    mangled name of a kernel
     template in a (hashed) anonymous namespace, as ptxas prints it:
     ``_ZN<len><namespace><len><name>I<args>E...``."""
     m = re.match(r"_ZN", mangled)
@@ -218,11 +242,17 @@ def _kernel_label(mangled: str) -> str:
     while (n := re.match(r"\d+", mangled[i:])):
         i += n.end()
         name, i = mangled[i:i + int(n.group())], i + int(n.group())
-    t = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E)+)E", mangled[i:])
+    arg = r"f|13__nv_bfloat16|13__nv_fp8_e4m3|Li\d+E|S[0-9A-Z]*_"
+    t = re.match(rf"I((?:{arg})+)E", mangled[i:])
     if not t:
         return name
-    args = ["f32" if a == "f" else "bf16" if a.startswith("13") else a[2:-1]
-            for a in re.findall(r"f|13__nv_bfloat16|Li\d+E", t.group(1))]
+    label = {"f": "f32", "13__nv_bfloat16": "bf16", "13__nv_fp8_e4m3": "e4m3"}
+    args = []
+    for a in re.findall(arg, t.group(1)):
+        if a.startswith("S"):          # a substitution: the type named before
+            args.append(args[-1])
+        else:
+            args.append(label.get(a, a[2:-1]))
     return f"{name}<{','.join(args)}>"
 
 
@@ -247,11 +277,17 @@ def _rand(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device=DEV).to(dtype)
 
 
+def _kv(kv, t):
+    """K or V of a case: in q's dtype, or (``kv`` = e4m3) cast to e4m3 as
+    the model's cache stores it."""
+    return t if kv is None else to_e4m3(t)
+
+
 def _prefill_case(gen, b, sq, smax, dtype, starts=None, window=None,
-                  softcap=None, hq=12, hkv=2, d=128):
+                  softcap=None, hq=12, hkv=2, d=128, kv=None):
     q = _rand(gen, (b, sq, hq, d), dtype)
-    kc = _rand(gen, (b, smax, hkv, d), dtype)
-    vc = _rand(gen, (b, smax, hkv, d), dtype)
+    kc = _kv(kv, _rand(gen, (b, smax, hkv, d), dtype))
+    vc = _kv(kv, _rand(gen, (b, smax, hkv, d), dtype))
     if starts is None:
         starts = torch.randint(0, smax - sq + 1, (b,), generator=gen,
                                device=DEV)
@@ -261,14 +297,14 @@ def _prefill_case(gen, b, sq, smax, dtype, starts=None, window=None,
 
 def _decode_case(gen, b, s, dtype, lengths=None, shuffle=False,
                  softcap=None, hq=12, hkv=2, d=128, ps=None, holes=False,
-                 window=None):
+                 window=None, kv=None):
     """``holes``: every third table entry is -1 (the kernel reads page 0
     there, as the plain version does)."""
     ps = ps or decode_page_size(s)
     npp = s // ps
     q = _rand(gen, (b, hq, d), dtype)
-    kp = _rand(gen, (b * npp, ps, hkv, d), dtype)
-    vp = _rand(gen, (b * npp, ps, hkv, d), dtype)
+    kp = _kv(kv, _rand(gen, (b * npp, ps, hkv, d), dtype))
+    vp = _kv(kv, _rand(gen, (b * npp, ps, hkv, d), dtype))
     order = torch.randperm(b * npp, generator=gen, device=DEV) if shuffle \
         else torch.arange(b * npp, device=DEV)
     tables = order.view(b, npp).to(torch.int32)
@@ -310,7 +346,7 @@ def _prefill_work(args, window):
     q, kc, _, starts = args
     b, sq, hq, d = q.shape
     smax, hkv = kc.shape[1], kc.shape[2]
-    es = q.element_size()
+    es, kv_es = q.element_size(), kc.element_size()
     pairs, kv_tokens = 0, 0
     for st in starts.tolist():
         qpos = np.arange(st, st + sq)
@@ -319,7 +355,7 @@ def _prefill_work(args, window):
             else np.maximum(qpos - window + 1, 0)
         pairs += int(np.maximum(hi - lo, 0).sum())
         kv_tokens += int(hi.max() - lo.min())
-    byts = 2 * q.numel() * es + 2 * kv_tokens * hkv * d * es + 4 * b
+    byts = 2 * q.numel() * es + 2 * kv_tokens * hkv * d * kv_es + 4 * b
     return byts, 4 * d * hq * pairs
 
 
@@ -330,18 +366,20 @@ def _decode_work(args, window=None):
     q, kp, _, tables, lengths = args
     b, hq, d = q.shape
     hkv = kp.shape[2]
-    es = q.element_size()
+    es, kv_es = q.element_size(), kp.element_size()
     lens = lengths.clamp(max=tables.shape[1] * kp.shape[1])
     toks = int((lens if window is None else lens.clamp(max=window)).sum())
-    byts = 2 * q.numel() * es + 2 * toks * hkv * d * es \
+    byts = 2 * q.numel() * es + 2 * toks * hkv * d * kv_es \
         + 4 * (tables.numel() + b)
     return byts, 4 * d * hq * toks
 
 
 def _sdpa_prefill(args, kw):
     """The same attention as one torch call: explicit mask, GQA (no
-    softcap: SDPA takes none)."""
+    softcap: SDPA takes none); e4m3 K/V are widened to q's dtype first,
+    outside the timed call (``_widen_ms`` times that)."""
     q, kc, vc, starts = args
+    kc, vc = kc.to(q.dtype), vc.to(q.dtype)
     sq, smax = q.shape[1], kc.shape[1]
     qpos = starts.long()[:, None] + torch.arange(sq, device=DEV)[None]
     kpos = torch.arange(smax, device=DEV)
@@ -354,6 +392,15 @@ def _sdpa_prefill(args, kw):
     return lambda: f(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
+def _widen_ms(args) -> dict:
+    """For e4m3 K/V: the time of widening them to q's dtype, the cast a
+    library call such as SDPA needs first."""
+    q, k, v = args[:3]
+    if k.dtype == q.dtype:
+        return {}
+    return {"widen_ms": time_ms(lambda: (k.to(q.dtype), v.to(q.dtype)))}
+
+
 def _sdpa_note(kw) -> dict:
     """A record's note on its SDPA time where the kernel applies a softcap
     that SDPA cannot."""
@@ -363,8 +410,10 @@ def _sdpa_note(kw) -> dict:
 
 def _sdpa_decode(args, window=None):
     """The same decode as one torch call over the gathered pages (no
-    softcap: SDPA takes none)."""
+    softcap: SDPA takes none); e4m3 pages are widened to q's dtype first,
+    outside the timed call."""
     q, kp, vp, tables, lengths = args
+    kp, vp = kp.to(q.dtype), vp.to(q.dtype)
     b, hq, d = q.shape
     ps, hkv = kp.shape[1], kp.shape[2]
     s = tables.shape[1] * ps
@@ -509,42 +558,47 @@ def phase_kernels(card: str) -> dict:
     pre_k, pre_p = (chunked_prefill.chunked_prefill_attention,
                     ref.chunked_prefill_attention_ref)
     dec_k, dec_p = paged_attention.paged_attention, ref.paged_attention_ref
-    for dtype in (torch.bfloat16, torch.float32):
-        tag = str(dtype).split(".")[-1]
+    # every case with K/V in q's dtype, then again with e4m3 K/V (the fp8
+    # cache; the variant still follows q's dtype)
+    for dtype, kv in itertools.product((torch.bfloat16, torch.float32),
+                                       (None, E4M3)):
+        tag = str(dtype).split(".")[-1] + ("" if kv is None else "/e4m3")
+        pc = functools.partial(_prefill_case, kv=kv)
+        dc = functools.partial(_decode_case, kv=kv)
         # G = 6, D = 128 unless named; a block holds 64 // G queries (10
         # at G = 6, 64 at G = 1 on the tensor-core variant)
         cases = {
-            "rows2_sq256": _prefill_case(gen, 2, 256, MAX_LEN, dtype),
-            "rows8_sq32": _prefill_case(gen, 8, 32, MAX_LEN, dtype),
-            "full_bucket": _prefill_case(gen, 1, 1024, 1024, dtype,
-                                         starts=[0]),
-            "ragged_sq100_smax1000": _prefill_case(gen, 2, 100, 1000, dtype),
-            "window64_softcap30": _prefill_case(gen, 2, 128, 1000, dtype,
-                                                window=64, softcap=30.0),
-            "sq37": _prefill_case(gen, 3, 37, MAX_LEN, dtype),
-            "d64_g6_sq45": _prefill_case(gen, 2, 45, 512, dtype, d=64),
-            "d64_g1_sq100": _prefill_case(gen, 2, 100, 1000, dtype, hq=8,
-                                          hkv=8, d=64),
-            "d128_g1_sq70": _prefill_case(gen, 2, 70, 512, dtype, hq=8,
-                                          hkv=8),
-            "d64_g1_window32_softcap50": _prefill_case(
+            "rows2_sq256": pc(gen, 2, 256, MAX_LEN, dtype),
+            "rows8_sq32": pc(gen, 8, 32, MAX_LEN, dtype),
+            "full_bucket": pc(gen, 1, 1024, 1024, dtype,
+                              starts=[0]),
+            "ragged_sq100_smax1000": pc(gen, 2, 100, 1000, dtype),
+            "window64_softcap30": pc(gen, 2, 128, 1000, dtype,
+                                     window=64, softcap=30.0),
+            "sq37": pc(gen, 3, 37, MAX_LEN, dtype),
+            "d64_g6_sq45": pc(gen, 2, 45, 512, dtype, d=64),
+            "d64_g1_sq100": pc(gen, 2, 100, 1000, dtype, hq=8,
+                               hkv=8, d=64),
+            "d128_g1_sq70": pc(gen, 2, 70, 512, dtype, hq=8,
+                               hkv=8),
+            "d64_g1_window32_softcap50": pc(
                 gen, 2, 150, 600, dtype, window=32, softcap=50.0, hq=4,
                 hkv=4, d=64),
             # gemma2: the second row's queries lie past the window
-            "gemma2_d256_g2_window4096_softcap50": _prefill_case(
+            "gemma2_d256_g2_window4096_softcap50": pc(
                 gen, 2, 256, GEMMA2_LEN, dtype, starts=[0, 3900],
                 window=4096, softcap=50.0, hq=8, hkv=4, d=256),
             # D = 256 with its key tiles split across 4, 2, 4 and 1 blocks
             # (bf16): ragged, G = 4 under a window, G = 1 over 4096 keys,
             # gemma2's serving iteration of 8 rows
-            "d256_g2_sq45_smax700": _prefill_case(gen, 2, 45, 700, dtype,
-                                                  hq=8, hkv=4, d=256),
-            "d256_g4_window500_softcap30": _prefill_case(
+            "d256_g2_sq45_smax700": pc(gen, 2, 45, 700, dtype,
+                                       hq=8, hkv=4, d=256),
+            "d256_g4_window500_softcap30": pc(
                 gen, 1, 300, 2000, dtype, window=500, softcap=30.0, hq=16,
                 hkv=4, d=256),
-            "d256_g1_sq64_smax4096": _prefill_case(
+            "d256_g1_sq64_smax4096": pc(
                 gen, 1, 64, 4096, dtype, starts=[4032], hq=4, hkv=4, d=256),
-            "d256_g2_rows8_sq256_softcap50": _prefill_case(
+            "d256_g2_rows8_sq256_softcap50": pc(
                 gen, 8, 256, MAX_LEN, dtype, softcap=50.0, hq=8, hkv=4,
                 d=256),
         }
@@ -564,33 +618,33 @@ def phase_kernels(card: str) -> dict:
         # G = 6, D = 128, 64-token pages unless named; splits: blocks per
         # (b, kv-head), from B * Hkv and the table's pages
         cases = {
-            "slots8_len1024": _decode_case(gen, 8, MAX_LEN, dtype),
-            "partial_page_softcap": _decode_case(
+            "slots8_len1024": dc(gen, 8, MAX_LEN, dtype),
+            "partial_page_softcap": dc(
                 gen, 4, MAX_LEN, dtype, lengths=[1, 65, 300, 1023],
                 softcap=30.0),
-            "shuffled_tables": _decode_case(gen, 8, 512, dtype, shuffle=True),
-            "one_slot_len1024": _decode_case(gen, 1, MAX_LEN, dtype,
-                                             lengths=[MAX_LEN]),
-            "lengths_1_2_64_65": _decode_case(gen, 4, MAX_LEN, dtype,
-                                              lengths=[1, 2, 64, 65]),
-            "g16_d128": _decode_case(gen, 4, 512, dtype, hq=32, hkv=2),
-            "g8_d256": _decode_case(gen, 4, 512, dtype, hq=16, hkv=2, d=256),
-            "d64": _decode_case(gen, 4, 512, dtype, d=64),
-            "page16_shuffled_holes": _decode_case(
+            "shuffled_tables": dc(gen, 8, 512, dtype, shuffle=True),
+            "one_slot_len1024": dc(gen, 1, MAX_LEN, dtype,
+                                   lengths=[MAX_LEN]),
+            "lengths_1_2_64_65": dc(gen, 4, MAX_LEN, dtype,
+                                    lengths=[1, 2, 64, 65]),
+            "g16_d128": dc(gen, 4, 512, dtype, hq=32, hkv=2),
+            "g8_d256": dc(gen, 4, 512, dtype, hq=16, hkv=2, d=256),
+            "d64": dc(gen, 4, 512, dtype, d=64),
+            "page16_shuffled_holes": dc(
                 gen, 3, 400, dtype, shuffle=True, ps=16, holes=True),
             # sliding windows: the first key is len - window (0 when the
             # window covers the request); gemma2 at one slot of 4300
-            "gemma2_len4300_window4096": _decode_case(
+            "gemma2_len4300_window4096": dc(
                 gen, 1, GEMMA2_LEN, dtype, lengths=[4300], **GEMMA2_HEADS),
             # 164 - 100 and 228 - 100 on page boundaries; 1, 50, 100
             # inside the window
-            "slots8_window100": _decode_case(
+            "slots8_window100": dc(
                 gen, 8, MAX_LEN, dtype,
                 lengths=[1, 50, 100, 101, 164, 228, 300, 1023], window=100),
-            "page16_shuffled_window40": _decode_case(
+            "page16_shuffled_window40": dc(
                 gen, 3, 400, dtype, shuffle=True, ps=16,
                 lengths=[40, 56, 399], window=40),
-            "g8_d128_window64": _decode_case(
+            "g8_d128_window64": dc(
                 gen, 4, MAX_LEN, dtype, lengths=[63, 64, 65, 1000], hq=16,
                 hkv=2, window=64),
         }
@@ -605,7 +659,7 @@ def phase_kernels(card: str) -> dict:
             say("kernels", kernel="paged_attention", case=name, dtype=tag,
                 splits=paged_attention.splits(
                     q.shape[0], q.shape[1], kp.shape[2], q.shape[2],
-                    tables.shape[1], dtype),
+                    tables.shape[1], dtype, kp.dtype),
                 window=kw["window"], max_abs_err=f"{errs[0]:.3e}")
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -635,29 +689,38 @@ def phase_kernels(card: str) -> dict:
             say("kernels", kernel="wkv6", case=name, dtype=tag,
                 max_abs_err=f"{errs[0]:.3e}")
 
-    # timing at the main path's shapes, bf16
+    # timing at the main path's shapes, bf16 q; each shape again with e4m3
+    # K/V (records named ..._e4m3; SDPA over bf16 copies of them, the
+    # widening's own time beside it)
     dtype = torch.bfloat16
     records = {}
-    for key, smax, starts, heads, shape in PREFILL_TIMED:
+    for (key, smax, starts, heads, shape), kv in itertools.product(
+            PREFILL_TIMED, (None, E4M3)):
         pargs, pkw = _prefill_case(gen, 2, 256, smax, dtype, starts=starts,
-                                   **heads)
+                                   kv=kv, **heads)
         byts, flops = _prefill_work(pargs, pkw["window"])
-        records[key] = dict(
-            name=key, route="cuda",
+        name = key if kv is None else f"{key}_e4m3"
+        records[name] = dict(
+            name=name, route="cuda",
             variant=_attention_variant(dtype, pargs[0].shape[-1]),
             source="src/repro_torch/kernels/csrc/chunked_prefill.cu",
-            replaces="src/repro/kernels/chunked_prefill.py:103", shape=shape,
-            max_abs_err=_compare(f"prefill/timed_{key}", pre_k, pre_p, pargs,
-                                 pkw, dtype),
+            replaces="src/repro/kernels/chunked_prefill.py:103",
+            shape=shape if kv is None else f"{shape}, K/V e4m3",
+            max_abs_err=_compare(f"prefill/timed_{name}", pre_k, pre_p,
+                                 pargs, pkw, dtype),
             ms=time_ms(lambda: pre_k(*pargs, **pkw)),
             plain_ms=time_ms(lambda: pre_p(*pargs, **pkw)),
             library_ms=time_ms(_sdpa_prefill(pargs, pkw)),
-            **_sdpa_note(pkw), **_bound(byts, flops, dtype))
-    for key, lengths, shape in DECODE_TIMED:
-        records[key] = _time_decode(gen, key, lengths, shape)
-    for key, s, lengths, shape in GEMMA2_DECODE_TIMED:
-        records[key] = _time_decode(gen, key, lengths, shape, s=s,
-                                    **GEMMA2_HEADS)
+            **_widen_ms(pargs), **_sdpa_note(pkw),
+            **_bound(byts, flops, dtype))
+    for kv in (None, E4M3):
+        for key, lengths, shape in DECODE_TIMED:
+            r = _time_decode(gen, key, lengths, shape, kv=kv)
+            records[r["name"]] = r
+        for key, s, lengths, shape in GEMMA2_DECODE_TIMED:
+            r = _time_decode(gen, key, lengths, shape, s=s, kv=kv,
+                             **GEMMA2_HEADS)
+            records[r["name"]] = r
     # wkv6: a decode step of 8 slots (its own device kernel), a prefill replay
     for key, variant, args, mode in (
             ("wkv6_decode", "decode", _wkv_case(gen, 8, 1, dtype,
@@ -715,13 +778,18 @@ DECODE_TIMED = (
 )
 
 
-def _time_decode(gen, key, lengths, shape, s=MAX_LEN, **case) -> dict:
+def _time_decode(gen, key, lengths, shape, s=MAX_LEN, kv=None,
+                 **case) -> dict:
     """The decode kernel's record on one timed shape (``case``: heads,
-    head_dim, softcap, window for ``_decode_case``): checked against the
-    plain version, then timed beside it, its bound and SDPA. A window goes
-    to the work and SDPA helpers only when set, so that kernel_ab.py can
-    run this on a tree whose helpers take none."""
+    head_dim, softcap, window for ``_decode_case``; ``kv``: e4m3 K/V, the
+    record then named ``<key>_e4m3``): checked against the plain version,
+    then timed beside it, its bound and SDPA. A window and e4m3 K/V go to
+    the helpers only when set, so that kernel_ab.py can run this on a tree
+    whose helpers take neither."""
     dtype = torch.bfloat16
+    if kv is not None:
+        case = dict(case, kv=kv)
+        key, shape = f"{key}_e4m3", f"{shape}, K/V e4m3"
     args, kw = _decode_case(gen, len(lengths), s, dtype,
                             lengths=list(lengths), **case)
     extra = {} if kw.get("window") is None else {"window": kw["window"]}
@@ -737,15 +805,17 @@ def _time_decode(gen, key, lengths, shape, s=MAX_LEN, **case) -> dict:
         ms=time_ms(lambda: kernel(*args, **kw)),
         plain_ms=time_ms(lambda: plain(*args, **kw)),
         library_ms=time_ms(_sdpa_decode(args, **extra)),
+        **({} if kv is None else _widen_ms(args)),
         **_sdpa_note(kw), **_bound(byts, flops, dtype))
 
 
 def _say_timed(r: dict, card: str) -> None:
     lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+    widen = {"widen_ms": f"{r['widen_ms']:.4f}"} if "widen_ms" in r else {}
     say("kernels", timed=r["name"], shape=repr(r["shape"]),
         ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
         bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
-        library_ms=lib, card=repr(card))
+        library_ms=lib, **widen, card=repr(card))
 
 
 def _bound(byts: int, flops: int, dtype) -> dict:
@@ -759,19 +829,21 @@ class _PlainKernels:
     """Inside this block the model's attention and WKV run the plain
     versions on the card (a comparison only; the port's ops never do
     this). ``wkv`` is the plain WKV: by default the form the JAX model
-    picks."""
+    picks; ``scale`` multiplies every attention output (a nudge the size
+    of a kernel's rounding)."""
 
-    def __init__(self, wkv=ref.wkv6_ref):
-        self.wkv = wkv
+    def __init__(self, wkv=ref.wkv6_ref, scale=1.0):
+        self.wkv, self.scale = wkv, scale
 
     def __enter__(self):
         self.saved = (ops.paged_attention_op, ops.chunked_prefill_op,
                       ops.wkv6_op)
+        x = self.scale
         ops.paged_attention_op = lambda *a, softcap=None, window=None: \
-            ref.paged_attention_ref(*a, softcap=softcap, window=window)
+            ref.paged_attention_ref(*a, softcap=softcap, window=window) * x
         ops.chunked_prefill_op = lambda *a, softcap=None, window=None: \
             ref.chunked_prefill_attention_ref(*a, softcap=softcap,
-                                              window=window)
+                                              window=window) * x
         ops.wkv6_op = self.wkv
 
     def __exit__(self, *exc):
@@ -780,10 +852,13 @@ class _PlainKernels:
 
 
 # the dense model phases: (arch, rows, prompt tokens, chunk, cache length,
-# tokens the last chunk takes per row, or None for all of it)
+# tokens the last chunk takes per row, or None for all of it, config
+# changes: model_fp8 stores the cache as e4m3)
 MODELS = {
-    "model": (ARCH, 2, 200, 200, MAX_LEN, [200, 150]),
-    "model_gemma2": (GEMMA2, 1, 4200, 1024, GEMMA2_LEN, None),
+    "model": (ARCH, 2, 200, 200, MAX_LEN, [200, 150], {}),
+    "model_gemma2": (GEMMA2, 1, 4200, 1024, GEMMA2_LEN, None, {}),
+    "model_fp8": (ARCH, 2, 200, 200, MAX_LEN, [200, 150],
+                  {"kv_cache_quant": True}),
 }
 
 
@@ -794,9 +869,19 @@ def phase_model(phase: str = "model") -> None:
     other) and, teacher-forced, through the plain attention; the logits
     of every chunk and step compared. gemma2's 4200-token prompt puts the
     decode positions (4200-4203) past its 4096-token window, so each of
-    the 13 local layers leaves out the first 105-108 keys."""
-    arch, rows, n_prompt, chunk, max_len, take = MODELS[phase]
-    base = get_config(arch)
+    the 13 local layers leaves out the first 105-108 keys.
+
+    model_fp8 is qwen2 with its cache stored as e4m3. There a difference
+    in the last bits of an attention output moves some later K/V values
+    across an e4m3 rounding boundary, a step of 6-12% of the value, so
+    the logits part by more than the kernels' error: every attention call
+    of the kernel run is also held to the kernel tolerances against the
+    plain version on the same live inputs (``_ShadowAttention``), and the
+    logits to the larger of ``MODEL_TOL`` and twice the floor measured in
+    the same run, between the plain run and one whose attention outputs
+    are scaled by 1 + 2^-20 (about the f32 kernels' error)."""
+    arch, rows, n_prompt, chunk, max_len, take, changes = MODELS[phase]
+    base = dataclasses.replace(get_config(arch), **changes)
     for dtype in (torch.bfloat16, torch.float32):
         cfg = dataclasses.replace(base, dtype=dtype)
         api = model_api.build(cfg)
@@ -831,24 +916,75 @@ def phase_model(phase: str = "model") -> None:
             return outs, toks
 
         result = []
-        _expect_variant(_attention_variant(dtype, cfg.head_dim),
-                        lambda: result.extend(run()), chunked_prefill,
-                        paged_attention)
+        with _ShadowAttention(dtype, cfg.kv_cache_quant) as shadow:
+            _expect_variant(_attention_variant(dtype, cfg.head_dim),
+                            lambda: result.extend(run()), chunked_prefill,
+                            paged_attention)
         got, toks = result
         with _PlainKernels():
             want, _ = run(toks)                  # teacher-forced
         rel, agree = _logit_errors(got, want)
+        tol, fp8 = MODEL_TOL[dtype], {}
+        if cfg.kv_cache_quant:
+            with _PlainKernels(scale=1 + 2 ** -20):
+                nudged, _ = run(toks)
+            floor = _logit_errors(nudged, want)[0]
+            tol = max(tol, FLOOR_FACTOR * floor)
+            fp8 = dict(plain_floor=f"{floor:.3e}",
+                       attention_calls=shadow.calls,
+                       worst_call_share_of_kernel_tol=f"{shadow.worst:.3f}")
         finite = all(torch.isfinite(g).all().item() for g in got)
         say(phase, arch=arch, dtype=str(dtype).split(".")[-1],
             params_b=f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f}",
             prompt=n_prompt, window=cfg.sliding_window,
-            logits_rel_l2=f"{rel:.3e}", tol=MODEL_TOL[dtype],
-            argmax_agreement=f"{agree:.3f}")
+            kv_cache="e4m3" if cfg.kv_cache_quant else "as the weights",
+            logits_rel_l2=f"{rel:.3e}", tol=f"{tol:.3e}",
+            argmax_agreement=f"{agree:.3f}", **fp8)
         check(finite, f"{phase}: non-finite logits")
-        check(rel <= MODEL_TOL[dtype],
+        check(shadow.worst <= 1.0, f"{phase}: an attention call is "
+              f"{shadow.worst:.2f}x the kernel tolerance from the plain "
+              "version on its inputs")
+        check(rel <= tol,
               f"{phase}: logits differ by {rel:.3e} (relative L2)")
         del params
         torch.cuda.empty_cache()
+
+
+class _ShadowAttention:
+    """Inside this block (when ``on``) every attention call of the model
+    runs the kernel and, on the same live inputs, its plain version; the
+    kernel's result goes on. ``worst`` keeps the largest error as a share
+    of the kernel tolerance (``TOL`` elementwise; 1.0 = at the
+    tolerance)."""
+
+    def __init__(self, dtype, on: bool = True):
+        self.tol, self.on = TOL[dtype], on
+
+    def __enter__(self):
+        self.saved = (ops.paged_attention_op, ops.chunked_prefill_op)
+        self.calls, self.worst = 0, 0.0
+        if not self.on:
+            return self
+
+        def shadow(kernel, plain):
+            def op(*args, softcap=None, window=None):
+                got = kernel(*args, softcap=softcap, window=window)
+                want = plain(*args, softcap=softcap, window=window).float()
+                share = ((got.float() - want).abs()
+                         / (self.tol + self.tol * want.abs())).max().item()
+                self.worst = max(self.worst, share)
+                self.calls += 1
+                return got
+            return op
+
+        ops.paged_attention_op = shadow(self.saved[0],
+                                        ref.paged_attention_ref)
+        ops.chunked_prefill_op = shadow(self.saved[1],
+                                        ref.chunked_prefill_attention_ref)
+        return self
+
+    def __exit__(self, *exc):
+        ops.paged_attention_op, ops.chunked_prefill_op = self.saved
 
 
 def _logit_errors(got, want):
@@ -1157,53 +1293,264 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+class _Eager:
+    """Inside this block (when ``on``) the cluster's steps run eagerly on
+    the card, the graphs' yardstick (a comparison only: on a CUDA device
+    the executor itself always replays its graphs)."""
+
+    def __init__(self, kernels, on: bool = True):
+        self.kernels, self.on = kernels, on
+
+    def __enter__(self):
+        self.saved = self.kernels.graphed
+        self.kernels.graphed = self.saved and not self.on
+
+    def __exit__(self, *exc):
+        self.kernels.graphed = self.saved
+
+
+def _profile_plans(reqs):
+    """The profile's iterations over 9 requests of about 256 tokens, as
+    (label, plan): a prefill of 8 rows x 256, then (label None: not
+    profiled) the rest of their prompts, a decode of the 8, and a mixed
+    iteration (the ninth's 256-token chunk on their decode batch). Each
+    plan is made when the caller has run the one before."""
+    yield "prefill 8x256", _plan(prefill=[(r, 256) for r in reqs[:8]])
+    for label in ("decode 8", "mixed 256 + decode 8"):
+        tails = [(r, r.prompt_len - r.prefilled_tokens) for r in reqs[:8]
+                 if r.prompt_len > r.prefilled_tokens]
+        if tails:
+            yield None, _plan(prefill=tails)
+        yield label, (_plan(decode=reqs[:8]) if label == "decode 8" else
+                      _plan(prefill=[(reqs[8], 256)], decode=reqs[:8]))
+
+
+def _run(execs, wid, plan, eager=False) -> None:
+    """One plan on worker ``wid`` (eagerly if asked), then the engine's
+    bookkeeping."""
+    with _Eager(execs.kernels, eager):
+        execs.execs[wid].run_plan(plan)
+    for r, t in plan.prefill_parts:
+        r.prefilled_tokens += t
+
+
 def phase_profile(card: str, arch: str = ARCH,
                   phase: str = "profile") -> list:
     """Where an iteration's time goes: torch.profiler over one prefill
     iteration (8 rows x 256 tokens), one decode iteration (8 slots at
     ~260 tokens) and one mixed iteration (a 256-token chunk + 8 decodes),
-    full width. Device time is the sum of kernel times (one stream, so
-    kernels do not overlap); idle share = 1 - device / wall. Returns
-    (label, plan, wall ms, device ms) per iteration."""
+    full width, each run through the CUDA graphs on worker 0 and eagerly on
+    worker 1 (the same weights and requests). Both first run the same plans
+    twice on other requests: the first pass captures every graph, the
+    second gives each iteration's wall time without the profiler (which
+    slows a graph replay severalfold: it traces each of its kernels). The
+    two must sample the same tokens. Device time is the sum of kernel
+    times under the profiler (one stream, so kernels do not overlap);
+    where the profiler reports no kernels of a graph replay, it is the
+    CUDA-event span of the iteration, and the by-name breakdown is the
+    eager run's. idle share = 1 - device / wall; host ms = wall - device,
+    the iteration's host term (the cost model's ``t_fixed``). Returns
+    (label, plan, wall ms, device ms) per graphed iteration."""
     rows = []
     cfg = get_config(arch)
-    execs = ClusterRealExecutors(cfg, 1, max_slots=16, max_len=MAX_LEN,
+    execs = ClusterRealExecutors(cfg, 2, max_slots=16, max_len=MAX_LEN,
                                  seed=0)
-    ex = execs.execs[0]
-    reqs = [_req(i, 256 + i) for i in range(9)]
-    for label in ("prefill 8x256", "decode 8", "mixed 256 + decode 8"):
-        if label == "prefill 8x256":
-            plan = _plan(prefill=[(r, 256) for r in reqs[:8]])
-        else:
-            tails = [(r, r.prompt_len - r.prefilled_tokens) for r in reqs[:8]
-                     if r.prompt_len > r.prefilled_tokens]
-            if tails:                  # finish the prompts first, unprofiled
-                ex.run_plan(_plan(prefill=tails))
-                for r, t in tails:
-                    r.prefilled_tokens += t
-            plan = _plan(decode=reqs[:8]) if label == "decode 8" else \
-                _plan(prefill=[(reqs[8], 256)], decode=reqs[:8])
-        wall, kernels = _profiled(lambda: ex.run_plan(plan))
-        for r, t in plan.prefill_parts:
-            r.prefilled_tokens += t
-        dev = _device_ms(kernels)
-        n = sum(e.count for e in kernels)
-        attn = _device_ms(kernels, _named(chunked_prefill, paged_attention))
-        gemm = _device_ms(kernels, _is_gemm)
-        check(attn > 0, f"{phase}: no attention kernel time in {label!r}")
-        say(phase, arch=arch, iteration=repr(label), wall_ms=f"{wall:.3f}",
-            device_ms=f"{dev:.3f}" if dev else "not-measured",
-            idle_share=f"{1 - dev / wall:.3f}" if dev else "not-measured",
-            attention_kernels_ms=f"{attn:.3f}", gemm_ms=f"{gemm:.3f}",
-            other_ms=f"{dev - attn - gemm:.3f}", device_kernels=n,
-            card=repr(card))
-        for e in kernels[:4]:
-            say(phase, kernel=repr(e.key[:70]), count=e.count,
-                device_ms=f"{_device_us(e) / 1e3:.3f}")
-        rows.append((label, plan, wall, dev))
+    modes = {"graphs": 0, "eager": 1}
+    walls = {}                                  # (mode, label): ms
+    for mode, wid in modes.items():             # warm, then timed
+        for base in (100, 200):
+            warm = [_req(base + i, 256 + i) for i in range(9)]
+            for label, plan in _profile_plans(warm):
+                t0 = time.perf_counter()
+                _run(execs, wid, plan, eager=mode == "eager")
+                walls[mode, label] = (time.perf_counter() - t0) * 1e3
+            for r in warm:
+                execs.on_finish(r)
+    reqs = {mode: [_req(i, 256 + i) for i in range(9)] for mode in modes}
+    for steps in zip(*(_profile_plans(reqs[m]) for m in modes)):
+        label = steps[0][0]
+        eager_kernels = None
+        for (mode, wid), (_, plan) in zip(modes.items(), steps):
+            if label is None:
+                _run(execs, wid, plan, eager=mode == "eager")
+                continue
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+            def once():
+                ev[0].record()
+                _run(execs, wid, plan, eager=mode == "eager")
+                ev[1].record()
+
+            profiled_wall, kernels = _profiled(once)
+            wall = walls[mode, label]
+            span = ev[0].elapsed_time(ev[1])
+            dev = _device_ms(kernels)
+            source = "profiler"
+            if mode == "eager":
+                eager_kernels = kernels
+            elif dev == 0:
+                source, dev = "cuda-events", span
+            by_name = kernels if source == "profiler" else eager_kernels
+            attn = _device_ms(by_name, _named(chunked_prefill,
+                                              paged_attention))
+            gemm = _device_ms(by_name, _is_gemm)
+            check(attn > 0, f"{phase}: no attention kernel time in "
+                  f"{label!r} ({mode})")
+            say(phase, arch=arch, iteration=repr(label), steps=mode,
+                wall_ms=f"{wall:.3f}", device_ms=f"{dev:.3f}",
+                device_source=source, profiled_wall_ms=f"{profiled_wall:.3f}",
+                profiled_event_span_ms=f"{span:.3f}",
+                idle_share=f"{1 - dev / wall:.3f}",
+                host_ms=f"{wall - dev:.3f}",
+                attention_kernels_ms=f"{attn:.3f}", gemm_ms=f"{gemm:.3f}",
+                other_ms=f"{_device_ms(by_name) - attn - gemm:.3f}",
+                device_kernels=sum(e.count for e in by_name),
+                card=repr(card))
+            if mode == "eager":
+                for e in kernels[:4]:
+                    say(phase, kernel=repr(e.key[:70]), count=e.count,
+                        device_ms=f"{_device_us(e) / 1e3:.3f}")
+            else:
+                rows.append((label, plan, wall, dev))
+    streams = {m: [execs.execs[wid].generated[r.rid] for r in reqs[m]]
+               for m, wid in modes.items()}
+    check(streams["graphs"] == streams["eager"],
+          f"{phase}: graphs and eager sampled different tokens {streams}")
     del execs
     torch.cuda.empty_cache()
     return rows
+
+
+# The graphs phase's iterations, as (worker, prefill parts, decode
+# requests) or ("migrate", request, from, to); prompt lengths below. Its
+# first replays (worker 1's 512-token bucket, worker 0's 128-token 2-row
+# bucket, worker 0's 64-token bucket, ...) follow no capture order.
+GRAPH_PROMPTS = dict(a=300, b=100, c=90, d=40, e=200, f=700, g=600, h=520,
+                     i=1000, j=30)
+GRAPH_DRIVE = (
+    (1, [("a", 300)], []),                     # bucket 512: a warmup key
+    (0, [("b", 100), ("c", 90)], []),          # 128 x 2 rows: first use
+    (0, [("d", 40)], []),
+    (1, [], ["a"]),
+    (0, [("e", 200)], ["b", "c", "d"]),        # mixed
+    (1, [("f", 700), ("g", 600), ("h", 520), ("i", 1000)], ["a"]),
+    (0, [], ["b", "c", "d", "e"]),
+    ("migrate", "b", 0, 1),
+    (1, [("j", 30)], ["a", "b", "f", "g", "h", "i"]),
+    (0, [], ["c", "d", "e"]),
+    (1, [], ["a", "b", "f", "g", "h", "i", "j"]),
+)
+
+
+def _graph_drive(execs, rid0: int, eager: bool):
+    """``GRAPH_DRIVE`` on requests rid0, rid0 + 1, ...: (each request's
+    sampled tokens, each iteration's wall ms); the requests are released
+    after."""
+    reqs = {n: _req(rid0 + i, n_prompt)
+            for i, (n, n_prompt) in enumerate(GRAPH_PROMPTS.items())}
+    walls = []
+    for step in GRAPH_DRIVE:
+        t0 = time.perf_counter()
+        if step[0] == "migrate":
+            execs.migrate(reqs[step[1]], step[2], step[3])
+        else:
+            wid, prefill, decode = step
+            _run(execs, wid, _plan(prefill=[(reqs[n], t) for n, t in prefill],
+                                   decode=[reqs[n] for n in decode]), eager)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    tokens = {n: list(execs.execs[execs._owner[r.rid]].generated[r.rid])
+              for n, r in reqs.items()}
+    for r in reqs.values():
+        execs.on_finish(r)
+    return tokens, walls
+
+
+def _zero_counts() -> None:
+    for module in ops.COUNTED:
+        module.launches = 0
+        for v in module.launches_by_variant:
+            module.launches_by_variant[v] = 0
+
+
+def _counts() -> dict:
+    return {m.__name__.rsplit(".", 1)[-1]: dict(m.launches_by_variant)
+            for m in ops.COUNTED}
+
+
+def phase_graphs(card: str, arch: str) -> None:
+    """CUDA graphs against eager steps at full width: two workers sharing
+    weights capture their warmup keys, then ``GRAPH_DRIVE`` (prefill keys
+    of 1-4 rows up to the 1024-token bucket, some captured at first use,
+    decode and mixed iterations, a migration) runs twice through the
+    graphs, replayed in an order that differs from the capture order, and
+    twice eagerly on a second cluster with the same weights and requests.
+    Sampled tokens must be identical; the caches are held to the bf16
+    model tolerance (relative L2; max abs difference printed, expected 0);
+    the second passes' launch counts, per device kernel variant, must be
+    equal (a replay adds what its capture counted)."""
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    graphed = ClusterRealExecutors(cfg, 2, max_slots=8, max_len=MAX_LEN,
+                                   seed=0)
+    k = graphed.kernels
+    say("graphs", arch=arch, warmup_s=f"{time.perf_counter() - t0:.2f}",
+        warmup_captures=k.captures, capture_s=f"{k.capture_seconds:.3f}")
+    eager = ClusterRealExecutors(cfg, 2, max_slots=8, max_len=MAX_LEN,
+                                 params=graphed.params, warmup=False)
+    order = []
+    replay = texec._StepGraph.replay
+
+    def logged(self, flat):
+        order.append(self)
+        return replay(self, flat)
+
+    texec._StepGraph.replay = logged
+    try:
+        runs = {}
+        for p in range(2):
+            for name, execs in (("graphs", graphed), ("eager", eager)):
+                _zero_counts()
+                runs[name, p] = _graph_drive(execs, 1000 * p,
+                                             name == "eager") + (_counts(),)
+    finally:
+        texec._StepGraph.replay = replay
+    captured = list(k._graphs.values())
+    first = [captured.index(g) for g in dict.fromkeys(order)]
+    diff = max((a.float() - b.float()).abs().max().item()
+               for ga, ea in zip(graphed.execs.values(),
+                                 eager.execs.values())
+               for a, b in ((ga.cache[key], ea.cache[key])
+                            for key in ("k", "v")))
+    rel = max(((ga.cache[key].float() - ea.cache[key].float()).norm()
+               / ea.cache[key].float().norm().clamp_min(1e-30)).item()
+              for ga, ea in zip(graphed.execs.values(), eager.execs.values())
+              for key in ("k", "v"))
+    for p in range(2):
+        (gt, gw, gc), (et, ew, ec) = runs["graphs", p], runs["eager", p]
+        say("graphs", arch=arch, drive_pass=p,
+            graphed_ms=[round(w, 3) for w in gw],
+            eager_ms=[round(w, 3) for w in ew],
+            graphed_total_ms=f"{sum(gw):.3f}", eager_total_ms=f"{sum(ew):.3f}",
+            tokens_equal=gt == et, card=repr(card))
+        check(gt == et, f"graphs: {arch} pass {p}: graphs and eager sampled "
+              f"different tokens {gt} / {et}")
+    (_, _, gc), (_, _, ec) = runs["graphs", 1], runs["eager", 1]
+    say("graphs", arch=arch, captures=k.captures,
+        prefill_captures=k.prefill_traces, decode_captures=k.decode_traces,
+        capture_s=f"{k.capture_seconds:.3f}",
+        pool_mb=f"{k.pool_bytes() / 2**20:.1f}",
+        first_replay_order=first, cache_max_abs_diff=f"{diff:.3e}",
+        cache_rel_l2=f"{rel:.3e}", launches_graphed=gc, launches_eager=ec)
+    check(first != sorted(first), "graphs: replays followed the capture "
+          f"order {first}")
+    check(rel <= MODEL_TOL[torch.bfloat16], f"graphs: {arch} caches differ "
+          f"by {rel:.3e} (relative L2)")
+    check(gc == ec and all(gc[m]["tensor_core"] > 0 for m in
+                           ("chunked_prefill", "paged_attention")),
+          f"graphs: launch counts differ: graphed {gc}, eager {ec}")
+    del graphed, eager
+    torch.cuda.empty_cache()
 
 
 # calibrate_hardware at serving shapes (qwen2's 12 heads of 128, a 2048-token
@@ -1295,29 +1642,54 @@ def phase_calibrate(card: str, profiled: list) -> None:
             card=repr(card))
 
 
+class _ConfigChanges:
+    """Inside this block ``repro_torch.configs.get_config(arch)`` returns
+    the config with ``changes`` (``dataclasses.replace``), as the JAX
+    ``launch/hillclimb.py`` varies a config; the serve CLI, like the JAX
+    one, has no flag for them (the fp8 cache)."""
+
+    def __init__(self, arch: str, changes: dict):
+        self.arch, self.changes = arch, changes
+
+    def __enter__(self):
+        self.saved = configs.get_config
+        configs.get_config = lambda name: dataclasses.replace(
+            self.saved(name), **(self.changes if name == self.arch else {}))
+
+    def __exit__(self, *exc):
+        configs.get_config = self.saved
+
+
 def phase_serve(card: str, phase: str, arch: str, kernels: dict,
-                main_variants: dict) -> dict:
-    """``repro_torch.launch.serve`` on full-width ``arch``; every kernel's
-    launch count is zeroed just before and ``kernels``' read just after.
-    Each of ``main_variants`` (module name -> its device kernel variants)
-    must have launched, and no other variant of that module."""
+                main_variants: dict, changes: Optional[dict] = None) -> dict:
+    """``repro_torch.launch.serve`` on full-width ``arch`` (with config
+    ``changes``); every kernel's launch count is zeroed just before and
+    ``kernels``' read just after (a graph replay adds what its capture
+    counted). Each of ``main_variants`` (module name -> its device kernel
+    variants) must have launched, and no other variant of that module."""
     # Explicit SLOs: the trace's default limits are 5x the light-load
     # latency under the H100 cost model with its assumed fractions, which
     # this card's host-bound iterations do not meet; with no slack the
     # toggle (rightly) rides no prefill on a decode batch, and the run
-    # would not exercise the mixed iterations the paper is about.
+    # would not exercise the mixed iterations the paper is about. Outputs
+    # of up to 128 tokens: with graphed steps (about 6 ms a decode) 32
+    # tokens left one or two of the 10 arrivals inside another request's
+    # decode, so a prefill rode on a decode batch in 1-2 iterations only.
     argv = ["--mode", "real", "--arch", arch, "--size", "full",
             "--policy", "tropical", "--workers", "2", "--rate", "1.5",
             "--duration", "5", "--seed", "1", "--max-len", str(MAX_LEN),
-            "--max-prompt", "512", "--max-output", "32",
+            "--max-prompt", "512", "--max-output", "128",
             "--slo-classes", "chat:ttft=5,tpot=0.5", "--json"]
     for module in (chunked_prefill, paged_attention, wkv6):
         module.launches = 0
         for v in getattr(module, "launches_by_variant", {}):
             module.launches_by_variant[v] = 0
     t0 = time.perf_counter()
-    row, backend = serve.run(argv)
+    changes = changes or {}
+    with _ConfigChanges(arch, changes):
+        row, backend = serve.run(argv)
     wall = time.perf_counter() - t0
+    graphs = backend.execs.kernels
     launches = {name: module.launches for name, module in kernels.items()}
     variants = {name: dict(module.launches_by_variant)
                 for name, module in kernels.items()
@@ -1332,6 +1704,16 @@ def phase_serve(card: str, phase: str, arch: str, kernels: dict,
         busy_s=f"{backend.busy_seconds:.3f}",
         tokens_per_busy_s=f"{generated / backend.busy_seconds:.1f}",
         wall_s=f"{wall:.2f}", card=repr(card))
+    caches = {str(e.cache["k"].dtype).split(".")[-1]
+              for e in backend.execs.execs.values() if "k" in e.cache}
+    if graphs is not None:
+        say(phase, graph_captures=graphs.captures,
+            capture_s=f"{graphs.capture_seconds:.3f}",
+            pool_mb=f"{graphs.pool_bytes() / 2**20:.1f}", kv_cache=caches)
+        check(graphs.graphed and graphs.captures > 0,
+              f"{phase}: the dense fast path captured no graph")
+    if changes.get("kv_cache_quant"):
+        check(caches == {"float8_e4m3fn"}, f"{phase}: caches {caches}")
     say(phase, launches=launches, by_variant=variants)
     check(row["n_total"] > 0 and row["n_finished"] == row["n_total"],
           f"{phase}: not every request finished")
@@ -1355,29 +1737,38 @@ def phase_serve(card: str, phase: str, arch: str, kernels: dict,
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     card = phase_device()
     phase_build()
     records = phase_kernels(card)
     phase_model()
     phase_model_rwkv()
     phase_model("model_gemma2")
+    phase_model("model_fp8")
     phase_executor(card)
     phase_executor_rwkv(card)
+    phase_graphs(card, ARCH)
+    phase_graphs(card, GEMMA2)
     profiled = phase_profile(card)
     phase_profile(card, GEMMA2, "profile_gemma2")
     phase_calibrate(card, profiled)
     attention = {"chunked_prefill": chunked_prefill,
                  "paged_attention": paged_attention}
+    tensor_cores = dict.fromkeys(attention, ("tensor_core",))
+    fp8 = {"kv_cache_quant": True}
     launches = {
-        "serve": phase_serve(card, "serve", ARCH, attention,
-                             dict.fromkeys(attention, ("tensor_core",))),
+        "serve": phase_serve(card, "serve", ARCH, attention, tensor_cores),
         "serve_rwkv": phase_serve(card, "serve_rwkv", RWKV, {"wkv6": wkv6},
                                   {"wkv6": ("chunk", "decode")}),
         "serve_gemma2": phase_serve(card, "serve_gemma2", GEMMA2, attention,
-                                    dict.fromkeys(attention,
-                                                  ("tensor_core",))),
+                                    tensor_cores),
+        "serve_fp8": phase_serve(card, "serve_fp8", ARCH, attention,
+                                 tensor_cores, fp8),
+        "serve_gemma2_fp8": phase_serve(card, "serve_gemma2_fp8", GEMMA2,
+                                        attention, tensor_cores, fp8),
     }
-    # a record's launches: its device kernel's on its main path
+    # a record's launches: its device kernel's on its main path (the e4m3
+    # records' on the same path with the fp8 cache)
     main = {"chunked_prefill": ("serve", "chunked_prefill.tensor_core"),
             "paged_attention": ("serve", "paged_attention.tensor_core"),
             "paged_attention_1slot": ("serve", "paged_attention.tensor_core"),
@@ -1389,6 +1780,8 @@ def main() -> None:
                                        "paged_attention.tensor_core"),
             "paged_attention_gemma2_long": ("serve_gemma2",
                                             "paged_attention.tensor_core")}
+    main |= {f"{name}_e4m3": (f"{phase}_fp8", key)
+             for name, (phase, key) in main.items() if "wkv6" not in name}
     kernels = []
     for name, r in records.items():
         phase, key = main[name]
@@ -1398,10 +1791,10 @@ def main() -> None:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"]} | (
-            {"library_note": r["library_note"]} if "library_note" in r
-            else {}))
+            "shape": r["shape"]} | {
+            k: r[k] for k in ("library_note", "widen_ms") if k in r})
     print(json.dumps({"kernels": kernels}))
+    say("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(f"nvidia-smi: {smi()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

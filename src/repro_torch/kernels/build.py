@@ -25,6 +25,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The attention kernels' K/V beside q: q's own dtype (0) or fp8 e4m3 (1),
+# which the kernels widen to q's dtype as they stage it
+KV_E4M3 = torch.float8_e4m3fn
 
 
 def _nvcc() -> str:
@@ -107,26 +110,41 @@ def require(ok: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def check_cuda_inputs(name: str, float_tensors, int_tensors) -> int:
+def check_cuda_inputs(name: str, float_tensors, int_tensors,
+                      kv_tensors=()) -> int:
     """Validate what a kernel takes and return its dtype code: every tensor
     contiguous on one CUDA device, floats all bf16 or all f32 and 16-byte
-    aligned, indices int32."""
+    aligned, indices int32. ``kv_tensors`` (an attention kernel's K and V)
+    share one dtype, the floats' or e4m3 (``kv_code``), and are 16-byte
+    aligned too."""
     device = float_tensors[0].device
     dtype = float_tensors[0].dtype
     require(dtype in DTYPE_CODES,
             f"{name}: dtype {dtype} not supported (bf16 or f32)")
-    for t in (*float_tensors, *int_tensors):
+    for t in (*float_tensors, *kv_tensors, *int_tensors):
         require(t.device == device,
                 f"{name}: tensors on {t.device} and {device}")
         require(t.is_contiguous(), f"{name}: inputs must be contiguous")
     for t in float_tensors:
         require(t.dtype == dtype, f"{name}: mixed dtypes {t.dtype}, {dtype}")
+    if kv_tensors:
+        kv = kv_tensors[0].dtype
+        require(kv in (dtype, KV_E4M3) and all(t.dtype == kv
+                                               for t in kv_tensors),
+                f"{name}: K/V dtypes {[t.dtype for t in kv_tensors]} with "
+                f"q in {dtype} (K and V share q's dtype or e4m3)")
+    for t in (*float_tensors, *kv_tensors):
         require(t.data_ptr() % 16 == 0, f"{name}: inputs must be 16-byte "
                                         "aligned")
     for t in int_tensors:
         require(t.dtype == torch.int32, f"{name}: index tensors must be "
                                         f"int32, got {t.dtype}")
     return DTYPE_CODES[dtype]
+
+
+def kv_code(k: torch.Tensor) -> int:
+    """The launchers' K/V code: 1 for e4m3, 0 for q's own dtype."""
+    return int(k.dtype == KV_E4M3)
 
 
 def check_head_dim(name: str, d: int) -> None:

@@ -7,15 +7,17 @@ new tokens starting at per-request offset ``starts[b]`` attends to the KV
 cache prefix [0, starts[b] + i]; the chunk's own K/V are already written.
 
   q:       (B, Sq, Hq, D)    — the chunk's queries (rope applied)
-  k_cache: (B, Smax, Hkv, D)
-  v_cache: (B, Smax, Hkv, D)
+  k_cache: (B, Smax, Hkv, D)  — q's dtype, or fp8 e4m3 (widened to q's
+  v_cache: (B, Smax, Hkv, D)    dtype as the kernel stages it)
   starts:  (B,) int32
 
 Unlike the Pallas kernel, ragged Sq and Smax are masked, not asserted.
-The library picks one of two device kernels from (dtype, D) alone: the
+The library picks one of two device kernels from (q's dtype, D) alone: the
 tensor-core one for bf16 at a D of ``TENSOR_CORE_HEAD_DIMS``, the CUDA-core
-f32 one otherwise. ``launches`` counts the wrapper's launches in this
-process and ``launches_by_variant`` splits them by device kernel;
+f32 one otherwise, whatever the K/V dtype. ``launches`` counts the
+wrapper's launches in this process and ``launches_by_variant`` splits them
+by device kernel (under a CUDA graph, ``ops.LaunchTally`` adds what a
+capture counted on each replay);
 ``KERNELS`` names the device kernels (as ``torch.profiler`` reports them)
 by variant; ``splits`` gives the blocks of a cluster that split each block
 of queries' keys in a call of given sizes (more than 1 only at D = 256).
@@ -29,12 +31,12 @@ import torch
 
 from repro_torch.kernels.build import (DTYPE_CODES, CudaLibrary,
                                        check_cuda_inputs, check_head_dim,
-                                       require, stream_handle)
+                                       kv_code, require, stream_handle)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLibrary("chunked_prefill.cu", {
     "chunked_prefill_launch": [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I,
-                                                     _P],
+                                                     _I, _P],
     "chunked_prefill_max_group": [_I],
     "chunked_prefill_variant": [_I, _I],
     "chunked_prefill_splits": [_I] * 8,
@@ -67,7 +69,7 @@ def chunked_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     global launches
     name = "chunked_prefill_attention"
     require(q.device.type == "cuda", f"{name}: q is on {q.device}, not CUDA")
-    dtype = check_cuda_inputs(name, (q, k_cache, v_cache), (starts,))
+    dtype = check_cuda_inputs(name, (q,), (starts,), (k_cache, v_cache))
     require(q.dim() == 4 and k_cache.dim() == 4, f"{name}: q must be "
             "(B, Sq, Hq, D) and the caches (B, Smax, Hkv, D)")
     b, sq, hq, d = q.shape
@@ -91,7 +93,7 @@ def chunked_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     err = lib.chunked_prefill_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         starts.data_ptr(), out.data_ptr(), b, sq, hq, hkv, d, smax,
-        float(softcap or 0.0), int(window or 0), dtype,
+        float(softcap or 0.0), int(window or 0), dtype, kv_code(k_cache),
         stream_handle(q.device))
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with CUDA error {err}")

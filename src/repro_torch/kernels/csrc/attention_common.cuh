@@ -52,19 +52,72 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
 }
 
+// ------------------------------------------------- fp8 (e4m3) K/V
+
+using e4m3 = __nv_fp8_e4m3;
+
+// Two e4m3 values (the low byte first) widened to f32: e4m3 -> f16 by
+// cvt.rn.f16x2.e4m3x2 (sm_89 on), then f16 -> f32. Every e4m3 value,
+// NaN aside, is exactly an f16, an f32 and a bf16 value, so the widening
+// loses nothing, as the JAX model's cast of its cache to q's dtype.
+__device__ __forceinline__ float2 e4m3x2_to_float2(uint32_t x) {
+  uint32_t h;
+  const uint16_t pair = static_cast<uint16_t>(x & 0xffffu);
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(h) : "h"(pair));
+  return __half22float2(*reinterpret_cast<const __half2*>(&h));
+}
+
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t x) {
+  const __nv_bfloat162 b = __float22bfloat162_rn(e4m3x2_to_float2(x));
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// 16 bytes of T widened from the 16 / sizeof(T) e4m3 values at src (8
+// bytes for bf16, 4 for f32; src aligned to that).
+template <typename T>
+__device__ __forceinline__ uint4 widen_e4m3(const e4m3* src);
+
+template <>
+__device__ __forceinline__ uint4 widen_e4m3<__nv_bfloat16>(const e4m3* src) {
+  const uint2 x = *reinterpret_cast<const uint2*>(src);
+  return make_uint4(e4m3x2_to_bf16x2(x.x), e4m3x2_to_bf16x2(x.x >> 16),
+                    e4m3x2_to_bf16x2(x.y), e4m3x2_to_bf16x2(x.y >> 16));
+}
+
+template <>
+__device__ __forceinline__ uint4 widen_e4m3<float>(const e4m3* src) {
+  const uint32_t x = *reinterpret_cast<const uint32_t*>(src);
+  const float2 a = e4m3x2_to_float2(x), b = e4m3x2_to_float2(x >> 16);
+  return make_uint4(__float_as_uint(a.x), __float_as_uint(a.y), __float_as_uint(b.x),
+                    __float_as_uint(b.y));
+}
+
+// One 16-byte chunk of T of a staged K or V row: chunk `chunk` of src when
+// K/V share T, else the same elements widened from e4m3.
+template <typename T, typename KV>
+__device__ __forceinline__ uint4 load_chunk(const KV* src, int chunk) {
+  if constexpr (std::is_same_v<KV, T>) {
+    return reinterpret_cast<const uint4*>(src)[chunk];
+  } else {
+    static_assert(std::is_same_v<KV, e4m3>, "K/V are T or e4m3");
+    return widen_e4m3<T>(src + chunk * (16 / static_cast<int>(sizeof(T))));
+  }
+}
+
 // Row stride of the staged K tile, in elements: two elements of padding
 // make lane c's reads of row c fall in distinct banks.
 __host__ __device__ __forceinline__ int k_stride(int d) { return d + 2; }
 
-// Copy one D-element row (16-byte chunks; src 16-byte aligned) into the
-// padded K tile and the unpadded V tile, or zeros when src is null.
-template <typename T>
-__device__ __forceinline__ void stage_chunk(const T* ksrc, const T* vsrc, T* kdst,
+// Copy chunk `chunk` (16 bytes of T) of one D-element row (src 16-byte
+// aligned, or an e4m3 row widened to T) into the padded K tile and the
+// unpadded V tile, or zeros when src is null.
+template <typename T, typename KV>
+__device__ __forceinline__ void stage_chunk(const KV* ksrc, const KV* vsrc, T* kdst,
                                             T* vdst, int chunk) {
   uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
   if (ksrc != nullptr) {
-    kv = reinterpret_cast<const uint4*>(ksrc)[chunk];
-    vv = reinterpret_cast<const uint4*>(vsrc)[chunk];
+    kv = load_chunk<T>(ksrc, chunk);
+    vv = load_chunk<T>(vsrc, chunk);
   }
   uint32_t* kw = reinterpret_cast<uint32_t*>(kdst) + chunk * 4;
   kw[0] = kv.x; kw[1] = kv.y; kw[2] = kv.z; kw[3] = kv.w;

@@ -38,6 +38,13 @@
 //   memory (f32); each warp owns up to 16 of them and scores 32-key tiles,
 //   lane c against key c.
 //
+// K/V may be fp8 e4m3 (an fp8 KV cache) with q in bf16 or f32; the variant
+// still follows q's dtype. Both kernels widen each e4m3 tile to q's type as
+// they stage it (e4m3 -> f16 -> f32 [-> bf16], exact) into the layout the
+// rest already reads, so the arithmetic after the stage is unchanged. The
+// e4m3 tiles are loaded and stored by the threads, which gives up the
+// tensor-core variant's cp.async overlap for K/V: a first, simple design.
+//
 // Both walk key tiles from the window floor up to the causal frontier
 // min(Smax, start + q0 + nq) only (the TPU kernel's skipped KV blocks become
 // the loop bounds). Ragged tails of Sq and Smax are masked, never asserted.
@@ -54,10 +61,10 @@ namespace {
 
 constexpr int kWarps = 4;
 
-template <typename T, int NCP>
+template <typename T, typename KV, int NCP>
 __global__ void __launch_bounds__(kWarps * rt::kWarp)
-chunked_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                       const T* __restrict__ vc, const int* __restrict__ starts,
+chunked_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
+                       const KV* __restrict__ vc, const int* __restrict__ starts,
                        T* __restrict__ out, int sq, int hq, int hkv, int d, int smax,
                        int g, int bq, float scale, float softcap, int window) {
   constexpr int R = rt::Shape<NCP>::kRowsPerWarp;
@@ -133,7 +140,7 @@ chunked_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T, int NCP>
+template <typename T, typename KV, int NCP>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* starts, void* out,
                    int b, int sq, int hq, int hkv, int d, int smax, float softcap, int window,
                    cudaStream_t stream) {
@@ -142,12 +149,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* star
   const int bq = min(sq, (kWarps * R) / g);
   const size_t smem = sizeof(float) * kWarps * R * d +
                       sizeof(T) * rt::kTileKeys * (rt::k_stride(d) + d);
-  auto kernel = chunked_prefill_kernel<T, NCP>;
+  auto kernel = chunked_prefill_kernel<T, KV, NCP>;
   cudaError_t err = rt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(b * hkv, (sq + bq - 1) / bq);
   kernel<<<grid, kWarps * rt::kWarp, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
       static_cast<const int*>(starts), static_cast<T*>(out), sq, hq, hkv, d, smax, g, bq,
       1.f / sqrtf(static_cast<float>(d)), softcap, window);
   return cudaGetLastError();
@@ -166,6 +173,18 @@ using rt::ldsm_x4;
 using rt::ldsm_x4_trans;
 using rt::mma_bf16;
 using rt::pack_bf16;
+
+// One 16-byte chunk (8 bf16) of a staged K/V row: a cp.async when K/V are
+// bf16, else 8 e4m3 values widened and stored by the thread (zeros when
+// !in, src then unread).
+template <typename KV>
+__device__ __forceinline__ void stage_bf16x8(bf16* dst, const KV* src, bool in) {
+  if constexpr (std::is_same_v<KV, bf16>) {
+    rt::cp_async16(dst, src, in);
+  } else {
+    *reinterpret_cast<uint4*>(dst) = in ? rt::widen_e4m3<bf16>(src) : make_uint4(0, 0, 0, 0);
+  }
+}
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(rt::kFull, v, 1));
@@ -233,10 +252,10 @@ static_assert(recv_bytes<256>(kMaxSplits) <= mma_smem_bytes<256>(), "recv > Q + 
 // x: the blocks of a cluster share one (b, kv-head, q-block) and split its
 // key tiles into `splits` runs; with splits > 1 they merge their partials
 // through distributed shared memory.
-template <int D>
+template <int D, typename KV>
 __global__ void __launch_bounds__(kMmaWarps * rt::kWarp)
-chunked_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
-                           const bf16* __restrict__ vc, const int* __restrict__ starts,
+chunked_prefill_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc,
+                           const KV* __restrict__ vc, const int* __restrict__ starts,
                            bf16* __restrict__ out, int sq, int hq, int hkv, int smax, int g,
                            int bq, int splits, float scale, float softcap, int window) {
   constexpr bool W = MmaPlan<D>::kWide;
@@ -292,8 +311,8 @@ chunked_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
         const int row = tid / CH + j * RP;
         const bool in = kt + row < smax;
         const size_t off = kv_base + (in ? kt + row : 0) * kv_row;
-        rt::cp_async16(kd + row * S + (tid % CH) * 8, kc + off, in);
-        rt::cp_async16(vd + row * S + (tid % CH) * 8, vc + off, in);
+        stage_bf16x8(kd + row * S + (tid % CH) * 8, kc + off, in);
+        stage_bf16x8(vd + row * S + (tid % CH) * 8, vc + off, in);
       }
     } else {
       for (int idx = tid; idx < K * CH; idx += blockDim.x) {
@@ -301,8 +320,8 @@ chunked_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
         const bool in = kt + row < smax;
         const size_t off =
             ((static_cast<size_t>(b) * smax + (in ? kt + row : 0)) * hkv + h) * D + c * 8;
-        rt::cp_async16(kd + row * S + c * 8, kc + off, in);
-        rt::cp_async16(vd + row * S + c * 8, vc + off, in);
+        stage_bf16x8(kd + row * S + c * 8, kc + off, in);
+        stage_bf16x8(vd + row * S + c * 8, vc + off, in);
       }
     }
   };
@@ -530,14 +549,14 @@ chunked_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   }
 }
 
-template <int D>
+template <int D, typename KV>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* starts,
                        void* out, int b, int sq, int hq, int hkv, int smax, float softcap,
                        int window, int splits, cudaStream_t stream) {
   const int g = hq / hkv;
   const int bq = min(sq, kMmaRows / g);
   constexpr size_t smem = mma_smem_bytes<D>();
-  auto kernel = chunked_prefill_mma_kernel<D>;
+  auto kernel = chunked_prefill_mma_kernel<D, KV>;
   cudaError_t err = rt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -554,8 +573,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
   }
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                           static_cast<const bf16*>(v), static_cast<const int*>(starts),
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(q), static_cast<const KV*>(k),
+                           static_cast<const KV*>(v), static_cast<const int*>(starts),
                            static_cast<bf16*>(out), sq, hq, hkv, smax, g, bq, splits,
                            1.f / sqrtf(static_cast<float>(D)), softcap, window);
   return err != cudaSuccess ? err : cudaGetLastError();
@@ -587,29 +606,41 @@ extern "C" int chunked_prefill_splits(int b, int sq, int hq, int hkv, int d, int
   return s;
 }
 
-// dtype: 0 = f32, 1 = bf16. softcap <= 0 and window <= 0 mean none.
-// Returns the cudaError_t of the launch (0 on success).
+// The launch for (q's dtype, d), K/V beside q in q's dtype or (FP8) e4m3.
+template <bool FP8>
+cudaError_t dispatch(const void* q, const void* k, const void* v, const void* starts, void* out,
+                     int b, int sq, int hq, int hkv, int d, int smax, float softcap, int window,
+                     int dtype, int splits, cudaStream_t s) {
+  using KB = std::conditional_t<FP8, rt::e4m3, __nv_bfloat16>;   // K/V beside bf16 q
+  using KF = std::conditional_t<FP8, rt::e4m3, float>;           // beside f32 q
+  const int ncp = rt::col_pairs(d);
+  if (chunked_prefill_variant(d, dtype)) {
+    if (d == 64) return launch_mma<64, KB>(q, k, v, starts, out, b, sq, hq, hkv, smax, softcap, window, splits, s);
+    if (d == 128) return launch_mma<128, KB>(q, k, v, starts, out, b, sq, hq, hkv, smax, softcap, window, splits, s);
+    return launch_mma<256, KB>(q, k, v, starts, out, b, sq, hq, hkv, smax, softcap, window, splits, s);
+  }
+  if (dtype == 1) {
+    if (ncp == 1) return launch<__nv_bfloat16, KB, 1>(q, k, v, starts, out, b, sq, hq, hkv, d, smax, softcap, window, s);
+    if (ncp == 2) return launch<__nv_bfloat16, KB, 2>(q, k, v, starts, out, b, sq, hq, hkv, d, smax, softcap, window, s);
+    return launch<__nv_bfloat16, KB, 4>(q, k, v, starts, out, b, sq, hq, hkv, d, smax, softcap, window, s);
+  }
+  if (ncp == 1) return launch<float, KF, 1>(q, k, v, starts, out, b, sq, hq, hkv, d, smax, softcap, window, s);
+  if (ncp == 2) return launch<float, KF, 2>(q, k, v, starts, out, b, sq, hq, hkv, d, smax, softcap, window, s);
+  return launch<float, KF, 4>(q, k, v, starts, out, b, sq, hq, hkv, d, smax, softcap, window, s);
+}
+
+// dtype (q and out): 0 = f32, 1 = bf16; kv: 0 = K/V in q's dtype, 1 = e4m3.
+// softcap <= 0 and window <= 0 mean none. Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int chunked_prefill_launch(const void* q, const void* k, const void* v,
                                       const void* starts, void* out, int b, int sq, int hq,
                                       int hkv, int d, int smax, float softcap, int window,
-                                      int dtype, void* stream) {
+                                      int dtype, int kv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ncp = rt::col_pairs(d);
   const int splits = chunked_prefill_splits(b, sq, hq, hkv, d, smax, window, dtype);
-  cudaError_t err;
-  if (chunked_prefill_variant(d, dtype)) {
-    if (d == 64) err = launch_mma<64>(q, k, v, starts, out, b, sq, hq, hkv, smax, softcap, window, splits, s);
-    else if (d == 128) err = launch_mma<128>(q, k, v, starts, out, b, sq, hq, hkv, smax, softcap, window, splits, s);
-    else err = launch_mma<256>(q, k, v, starts, out, b, sq, hq, hkv, smax, softcap, window, splits, s);
-  } else if (dtype == 1) {
-    if (ncp == 1) err = launch<__nv_bfloat16, 1>(q, k, v, starts, out, b, sq, hq, hkv, d, smax, softcap, window, s);
-    else if (ncp == 2) err = launch<__nv_bfloat16, 2>(q, k, v, starts, out, b, sq, hq, hkv, d, smax, softcap, window, s);
-    else err = launch<__nv_bfloat16, 4>(q, k, v, starts, out, b, sq, hq, hkv, d, smax, softcap, window, s);
-  } else {
-    if (ncp == 1) err = launch<float, 1>(q, k, v, starts, out, b, sq, hq, hkv, d, smax, softcap, window, s);
-    else if (ncp == 2) err = launch<float, 2>(q, k, v, starts, out, b, sq, hq, hkv, d, smax, softcap, window, s);
-    else err = launch<float, 4>(q, k, v, starts, out, b, sq, hq, hkv, d, smax, softcap, window, s);
-  }
+  const cudaError_t err =
+      kv ? dispatch<true>(q, k, v, starts, out, b, sq, hq, hkv, d, smax, softcap, window, dtype, splits, s)
+         : dispatch<false>(q, k, v, starts, out, b, sq, hq, hkv, d, smax, softcap, window, dtype, splits, s);
   return static_cast<int>(err);
 }
 

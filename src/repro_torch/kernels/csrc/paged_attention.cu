@@ -71,6 +71,13 @@
 //   products (the f32 path is held at 1e-4): a warp tile is 32 keys, lane c
 //   scores key c for the G query rows (rt::WarpState), 1-4 warps as shared
 //   memory allows.
+//
+// K/V pages may be fp8 e4m3 (an fp8 KV cache) with q in bf16 or f32; the
+// variant still follows q's dtype. Each warp widens its e4m3 tiles to q's
+// type as it stages them (e4m3 -> f16 -> f32 [-> bf16], exact) into the
+// ring layout the rest already reads; those tiles are loaded and stored by
+// the lanes instead of cp.async, so the next tile's load no longer overlaps
+// the current tile's products: a first, simple design.
 #include <cooperative_groups.h>
 
 #include "attention_common.cuh"
@@ -267,10 +274,22 @@ __host__ __device__ constexpr size_t mma_smem_bytes() {
          recv_bytes(D) + mma_ring_bytes<D>();
 }
 
-template <int D, int NT>
+// One 16-byte chunk (8 bf16) of a staged K/V row: a cp.async when K/V are
+// bf16, else 8 e4m3 values widened and stored by the lane (zeros when
+// !in, src then unread).
+template <typename KV>
+__device__ __forceinline__ void stage_bf16x8(bf16* dst, const KV* src, bool in) {
+  if constexpr (std::is_same_v<KV, bf16>) {
+    rt::cp_async16(dst, src, in);
+  } else {
+    *reinterpret_cast<uint4*>(dst) = in ? rt::widen_e4m3<bf16>(src) : make_uint4(0, 0, 0, 0);
+  }
+}
+
+template <int D, int NT, typename KV>
 __global__ void __launch_bounds__(kWarps * rt::kWarp)
-paged_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
-                           const bf16* __restrict__ vp, const int* __restrict__ tables,
+paged_attention_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
+                           const KV* __restrict__ vp, const int* __restrict__ tables,
                            const int* __restrict__ lengths, bf16* __restrict__ out, int hq,
                            int hkv, int ps, int max_pages, float scale, float softcap,
                            int window) {
@@ -332,8 +351,8 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       const bool in = k0 + r < rg.hi;
       size_t off = 0;
       if (in) off = one_page ? base + r * row_step : token_offset(table, k0 + r, ps, hkv, h, D) + c * 8;
-      rt::cp_async16(kd + r * S, kp + off, in);
-      rt::cp_async16(vd + r * S, vp + off, in);
+      stage_bf16x8(kd + r * S, kp + off, in);
+      stage_bf16x8(vd + r * S, vp + off, in);
     }
   };
   rt::cp_async_wait<0>();                  // Q and the table have landed
@@ -488,10 +507,10 @@ size_t core_smem_bytes(int warps, int d, int esize) {
          (ring > wacc ? ring : wacc);
 }
 
-template <typename T, int NCP>
+template <typename T, typename KV, int NCP>
 __global__ void __launch_bounds__(kWarps * rt::kWarp)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                       const T* __restrict__ vp, const int* __restrict__ tables,
+paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                       const KV* __restrict__ vp, const int* __restrict__ tables,
                        const int* __restrict__ lengths, T* __restrict__ out, int hq, int hkv,
                        int d, int ps, int max_pages, float scale, float softcap, int window) {
   constexpr int R = rt::Shape<NCP>::kRowsPerWarp;
@@ -533,12 +552,18 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     for (int idx = lane; idx < rt::kTileKeys * chunks; idx += rt::kWarp) {
       const int row = idx / chunks, c = idx % chunks;
       const bool in = k0 + row < rg.hi;
-      const size_t off = (in ? token_offset(table, k0 + row, ps, hkv, h, d) : 0) + c * E;
+      const size_t row_off = in ? token_offset(table, k0 + row, ps, hkv, h, d) : 0;
+      if constexpr (std::is_same_v<KV, T>) {
+        const size_t off = row_off + c * E;
 #pragma unroll
-      for (int part = 0; part < 16 / KB; ++part)
-        rt::cp_async_ca<KB>(kd + row * rt::k_stride(d) + c * E + part * (KB / sizeof(T)),
-                            kp + off + part * (KB / sizeof(T)), in);
-      rt::cp_async16(vd + row * d + c * E, vp + off, in);
+        for (int part = 0; part < 16 / KB; ++part)
+          rt::cp_async_ca<KB>(kd + row * rt::k_stride(d) + c * E + part * (KB / sizeof(T)),
+                              kp + off + part * (KB / sizeof(T)), in);
+        rt::cp_async16(vd + row * d + c * E, vp + off, in);
+      } else {                     // e4m3 widened to T (the K row is 4-byte aligned)
+        rt::stage_chunk(in ? kp + row_off : nullptr, in ? vp + row_off : nullptr,
+                        kd + row * rt::k_stride(d), vd + row * d, c);
+      }
     }
   };
   rt::cp_async_wait<0>();
@@ -646,10 +671,10 @@ struct Call {
   cudaStream_t stream;
 };
 
-template <int D, int NT>
+template <int D, int NT, typename KV>
 int mma_cap() {
   static const int cap = [] {
-    auto kernel = paged_attention_mma_kernel<D, NT>;
+    auto kernel = paged_attention_mma_kernel<D, NT, KV>;
     if (rt::allow_smem(kernel, mma_smem_bytes<D>()) != cudaSuccess) {
       cudaGetLastError();
       return kPortableCluster;
@@ -659,15 +684,15 @@ int mma_cap() {
   return cap;
 }
 
-template <int D, int NT>
+template <int D, int NT, typename KV>
 cudaError_t launch_mma(const Call& c, int splits) {
-  auto kernel = paged_attention_mma_kernel<D, NT>;
+  auto kernel = paged_attention_mma_kernel<D, NT, KV>;
   constexpr size_t smem = mma_smem_bytes<D>();
   cudaError_t err = rt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   return launch_clusters(kernel, splits, c.b * c.hkv, kWarps * rt::kWarp, smem, c.stream,
-                         static_cast<const bf16*>(c.q), static_cast<const bf16*>(c.kp),
-                         static_cast<const bf16*>(c.vp), static_cast<const int*>(c.tables),
+                         static_cast<const bf16*>(c.q), static_cast<const KV*>(c.kp),
+                         static_cast<const KV*>(c.vp), static_cast<const int*>(c.tables),
                          static_cast<const int*>(c.lengths), static_cast<bf16*>(c.out), c.hq,
                          c.hkv, c.ps, c.max_pages, 1.f / sqrtf(static_cast<float>(D)), c.softcap,
                          c.window);
@@ -682,17 +707,17 @@ int core_warps(int d) {
   return warps;
 }
 
-template <typename T, int NCP>
+template <typename T, typename KV, int NCP>
 cudaError_t launch_core(const Call& c, int splits) {
   constexpr int R = rt::Shape<NCP>::kRowsPerWarp;
   const int warps = core_warps<T, NCP>(c.d);
   const size_t smem = core_smem_bytes<R>(warps, c.d, sizeof(T));
-  auto kernel = paged_attention_kernel<T, NCP>;
+  auto kernel = paged_attention_kernel<T, KV, NCP>;
   cudaError_t err = rt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   return launch_clusters(kernel, splits, c.b * c.hkv, warps * rt::kWarp, smem, c.stream,
-                         static_cast<const T*>(c.q), static_cast<const T*>(c.kp),
-                         static_cast<const T*>(c.vp), static_cast<const int*>(c.tables),
+                         static_cast<const T*>(c.q), static_cast<const KV*>(c.kp),
+                         static_cast<const KV*>(c.vp), static_cast<const int*>(c.tables),
                          static_cast<const int*>(c.lengths), static_cast<T*>(c.out), c.hq,
                          c.hkv, c.d, c.ps, c.max_pages,
                          1.f / sqrtf(static_cast<float>(c.d)), c.softcap, c.window);
@@ -700,12 +725,36 @@ cudaError_t launch_core(const Call& c, int splits) {
 
 int variant(int d, int dtype) { return dtype == 1 && (d == 64 || d == 128 || d == 256); }
 
-// The cluster limit of the kernel (d, dtype, g) goes to (G <= 8 at D = 256).
+// The cluster limit of the kernel (d, dtype, g, K/V) goes to (G <= 8 at
+// D = 256).
+template <typename KV>
 int cap_for(int d, int dtype, int g) {
   if (!variant(d, dtype)) return kPortableCluster;
-  if (d == 64) return g <= 8 ? mma_cap<64, 1>() : mma_cap<64, 2>();
-  if (d == 128) return g <= 8 ? mma_cap<128, 1>() : mma_cap<128, 2>();
-  return mma_cap<256, 1>();
+  if (d == 64) return g <= 8 ? mma_cap<64, 1, KV>() : mma_cap<64, 2, KV>();
+  if (d == 128) return g <= 8 ? mma_cap<128, 1, KV>() : mma_cap<128, 2, KV>();
+  return mma_cap<256, 1, KV>();
+}
+
+// The launch for (q's dtype, d), K/V beside q in q's dtype or (FP8) e4m3.
+template <bool FP8>
+cudaError_t dispatch(const Call& c, int dtype, int splits) {
+  using KB = std::conditional_t<FP8, rt::e4m3, bf16>;    // K/V beside bf16 q
+  using KF = std::conditional_t<FP8, rt::e4m3, float>;   // beside f32 q
+  const int g = c.hq / c.hkv;
+  const int ncp = rt::col_pairs(c.d);
+  if (variant(c.d, dtype)) {
+    if (c.d == 64) return g <= 8 ? launch_mma<64, 1, KB>(c, splits) : launch_mma<64, 2, KB>(c, splits);
+    if (c.d == 128) return g <= 8 ? launch_mma<128, 1, KB>(c, splits) : launch_mma<128, 2, KB>(c, splits);
+    return launch_mma<256, 1, KB>(c, splits);
+  }
+  if (dtype == 1) {
+    if (ncp == 1) return launch_core<bf16, KB, 1>(c, splits);
+    if (ncp == 2) return launch_core<bf16, KB, 2>(c, splits);
+    return launch_core<bf16, KB, 4>(c, splits);
+  }
+  if (ncp == 1) return launch_core<float, KF, 1>(c, splits);
+  if (ncp == 2) return launch_core<float, KF, 2>(c, splits);
+  return launch_core<float, KF, 4>(c, splits);
 }
 
 }  // namespace
@@ -713,36 +762,24 @@ int cap_for(int d, int dtype, int g) {
 // 1 when (dtype, d) goes to the tensor-core kernel, 0 for the CUDA-core one.
 extern "C" int paged_attention_variant(int d, int dtype) { return variant(d, dtype); }
 
-// Blocks per (b, kv-head) a call with these sizes launches.
-extern "C" int paged_attention_splits(int b, int hq, int hkv, int d, int max_pages, int dtype) {
-  return choose_splits(b * hkv, max_pages, cap_for(d, dtype, hq / hkv));
+// Blocks per (b, kv-head) a call with these sizes launches (kv as below).
+extern "C" int paged_attention_splits(int b, int hq, int hkv, int d, int max_pages, int dtype,
+                                      int kv) {
+  const int cap = kv ? cap_for<rt::e4m3>(d, dtype, hq / hkv) : cap_for<bf16>(d, dtype, hq / hkv);
+  return choose_splits(b * hkv, max_pages, cap);
 }
 
-// dtype: 0 = f32, 1 = bf16. softcap <= 0 and window <= 0 mean none.
-// Returns the cudaError_t of the launch (0 on success).
+// dtype (q and out): 0 = f32, 1 = bf16; kv: 0 = K/V in q's dtype, 1 = e4m3.
+// softcap <= 0 and window <= 0 mean none. Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int paged_attention_launch(const void* q, const void* kp, const void* vp,
                                       const void* tables, const void* lengths, void* out, int b,
                                       int hq, int hkv, int d, int ps, int max_pages,
-                                      float softcap, int window, int dtype, void* stream) {
+                                      float softcap, int window, int dtype, int kv, void* stream) {
   const Call c{q, kp, vp, tables, lengths, out, b, hq, hkv, d, ps, max_pages, softcap, window,
                static_cast<cudaStream_t>(stream)};
-  const int g = hq / hkv;
-  const int splits = paged_attention_splits(b, hq, hkv, d, max_pages, dtype);
-  const int ncp = rt::col_pairs(d);
-  cudaError_t err;
-  if (variant(d, dtype)) {
-    if (d == 64) err = g <= 8 ? launch_mma<64, 1>(c, splits) : launch_mma<64, 2>(c, splits);
-    else if (d == 128) err = g <= 8 ? launch_mma<128, 1>(c, splits) : launch_mma<128, 2>(c, splits);
-    else err = launch_mma<256, 1>(c, splits);
-  } else if (dtype == 1) {
-    if (ncp == 1) err = launch_core<bf16, 1>(c, splits);
-    else if (ncp == 2) err = launch_core<bf16, 2>(c, splits);
-    else err = launch_core<bf16, 4>(c, splits);
-  } else {
-    if (ncp == 1) err = launch_core<float, 1>(c, splits);
-    else if (ncp == 2) err = launch_core<float, 2>(c, splits);
-    else err = launch_core<float, 4>(c, splits);
-  }
+  const int splits = paged_attention_splits(b, hq, hkv, d, max_pages, dtype, kv);
+  const cudaError_t err = kv ? dispatch<true>(c, dtype, splits) : dispatch<false>(c, dtype, splits);
   return static_cast<int>(err);
 }
 

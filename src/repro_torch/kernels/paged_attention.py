@@ -6,8 +6,8 @@ it on the card and how its design answers that. Layout, as in the JAX
 package:
 
   q:            (B, Hq, D)
-  k_pages:      (n_pages, page_size, Hkv, D)
-  v_pages:      (n_pages, page_size, Hkv, D)
+  k_pages:      (n_pages, page_size, Hkv, D)  — q's dtype or fp8 e4m3
+  v_pages:      (n_pages, page_size, Hkv, D)    (widened as staged)
   block_tables: (B, max_pages) int32   — per-request page ids (< 0: page 0)
   lengths:      (B,) int32             — tokens in cache, incl. the new one
 
@@ -18,14 +18,15 @@ XLA); the port's decode goes through this kernel, hence the window here.
 
 Each call is one launch: a thread-block cluster of S blocks per (b, kv-head)
 splits the request's pages and merges its partials in the same kernel.
-The library picks one of two device kernels from (dtype, D) alone: the
+The library picks one of two device kernels from (q's dtype, D) alone: the
 tensor-core one for bf16 at a D of ``TENSOR_CORE_HEAD_DIMS``, the CUDA-core
-f32 one otherwise.
+f32 one otherwise, whatever the K/V dtype.
 ``launches`` counts the wrapper's launches in this process and
-``launches_by_variant`` splits them by device kernel; ``KERNELS`` names the
-device kernels (as ``torch.profiler`` reports them) by variant;
-``splits`` gives S for a call's sizes. ``kernels.ops`` is the dispatch that
-sends CPU tensors to ``kernels.ref`` instead.
+``launches_by_variant`` splits them by device kernel (under a CUDA graph,
+``ops.LaunchTally`` adds what a capture counted on each replay);
+``KERNELS`` names the device kernels (as ``torch.profiler`` reports them)
+by variant; ``splits`` gives S for a call's sizes. ``kernels.ops`` is the
+dispatch that sends CPU tensors to ``kernels.ref`` instead.
 """
 from __future__ import annotations
 
@@ -35,16 +36,17 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODES, CudaLibrary,
-                                       check_cuda_inputs, check_head_dim,
-                                       require, stream_handle)
+                                       KV_E4M3, check_cuda_inputs,
+                                       check_head_dim, kv_code, require,
+                                       stream_handle)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLibrary("paged_attention.cu", {
     "paged_attention_launch": [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _I,
-                                                     _P],
+                                                     _I, _P],
     "paged_attention_max_group": [_I],
     "paged_attention_variant": [_I, _I],
-    "paged_attention_splits": [_I] * 6,
+    "paged_attention_splits": [_I] * 7,
 })
 KERNELS = {"cuda_core": "paged_attention_kernel",
            "tensor_core": "paged_attention_mma_kernel"}
@@ -57,10 +59,12 @@ launches_by_variant = dict.fromkeys(KERNELS, 0)
 
 
 def splits(b: int, hq: int, hkv: int, d: int, max_pages: int,
-           dtype: torch.dtype) -> int:
-    """Blocks per (b, kv-head) that a call of these sizes launches."""
-    return LIB.lib().paged_attention_splits(b, hq, hkv, d, max_pages,
-                                            DTYPE_CODES[dtype])
+           dtype: torch.dtype, kv_dtype: Optional[torch.dtype] = None) -> int:
+    """Blocks per (b, kv-head) that a call of these sizes launches, with
+    K/V in ``kv_dtype`` (default: q's ``dtype``)."""
+    return LIB.lib().paged_attention_splits(
+        b, hq, hkv, d, max_pages, DTYPE_CODES[dtype],
+        int(kv_dtype == KV_E4M3))
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -73,8 +77,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     global launches
     name = "paged_attention"
     require(q.device.type == "cuda", f"{name}: q is on {q.device}, not CUDA")
-    dtype = check_cuda_inputs(name, (q, k_pages, v_pages),
-                              (block_tables, lengths))
+    dtype = check_cuda_inputs(name, (q,), (block_tables, lengths),
+                              (k_pages, v_pages))
     require(q.dim() == 3 and k_pages.dim() == 4, f"{name}: q must be "
             "(B, Hq, D) and pages (N, page_size, Hkv, D)")
     b, hq, d = q.shape
@@ -101,7 +105,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, hq, hkv, d, ps, block_tables.shape[1],
-        float(softcap or 0.0), int(window or 0), dtype,
+        float(softcap or 0.0), int(window or 0), dtype, kv_code(k_pages),
         stream_handle(q.device))
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with CUDA error {err}")

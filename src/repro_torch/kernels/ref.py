@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the kernels (same math, no tiling).
 
 Attention: counterparts of ``repro/kernels/ref.py``; inputs are upcast to
-f32 and masked scores are set to -1e30, exactly as there. WKV6: the three
-forms of the RWKV-6 recurrence in ``repro/models/rwkv6.py`` (``wkv_scan``,
-``wkv_chunked``, ``wkv_decode``), in f32. ``kernels.ops`` sends tensors
+f32 and masked scores are set to -1e30, exactly as there. K/V stored as
+fp8 (e4m3) are first widened to q's dtype, as the JAX model casts its
+quantised cache before attention. WKV6: the three forms of the RWKV-6
+recurrence in ``repro/models/rwkv6.py`` (``wkv_scan``, ``wkv_chunked``,
+``wkv_decode``), in f32. ``kernels.ops`` sends tensors
 that lie on the CPU here; ``chip_smoke.py`` holds each Hopper kernel
 against these on the card.
 """
@@ -20,6 +22,11 @@ def _soft_cap(s, cap):
     return s if cap is None else cap * torch.tanh(s / cap)
 
 
+def _widen(kv, q):
+    """K or V in q's dtype (exact from e4m3 into bf16 or f32)."""
+    return kv if kv.dtype == q.dtype else kv.to(q.dtype)
+
+
 def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
                         softcap=None, window=None):
     """q: (B, Hq, D); pages (N, ps, Hkv, D); block_tables (B, P); lengths
@@ -32,8 +39,8 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
     s_max = block_tables.shape[1] * ps
 
     safe = block_tables.long().clamp_min(0)
-    k = k_pages[safe].reshape(b, s_max, hkv, d).float()
-    v = v_pages[safe].reshape(b, s_max, hkv, d).float()
+    k = _widen(k_pages, q)[safe].reshape(b, s_max, hkv, d).float()
+    v = _widen(v_pages, q)[safe].reshape(b, s_max, hkv, d).float()
 
     qg = q.reshape(b, hkv, g, d).float()
     s = torch.einsum("bhgd,bshd->bhgs", qg, k) / math.sqrt(d)
@@ -56,6 +63,7 @@ def chunked_prefill_attention_ref(q, k_cache, v_cache, starts, *,
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
     qg = q.reshape(b, sq, hkv, g, d).float()
+    k_cache, v_cache = _widen(k_cache, q), _widen(v_cache, q)
     s = torch.einsum("bqhgd,bshd->bhgqs", qg, k_cache.float()) / math.sqrt(d)
     s = _soft_cap(s, softcap)
     qpos = starts.long()[:, None] + torch.arange(sq, device=q.device)[None]

@@ -15,7 +15,9 @@ Pallas kernel, any T >= 1 is taken (no ``T % chunk`` assert) and the
 output is f32, as the model consumes it. The library picks one of two
 device kernels by T alone: a streaming one for T = 1 (the decode step) and
 the chunked one otherwise. ``launches`` counts the wrapper's launches in
-this process and ``launches_by_variant`` splits them by device kernel;
+this process and ``launches_by_variant`` splits them by device kernel
+(under a CUDA graph, ``ops.LaunchTally`` adds what a capture counted on
+each replay);
 ``KERNELS`` names the device kernels (as ``torch.profiler`` reports them)
 by variant.
 """

@@ -1,7 +1,7 @@
 """Uniform model API, as in ``repro/models/api.py``, for the families the
-port carries so far: dense transformers (sliding windows and post-norms
-included, with the uniform cache: neither the fp8 KV cache nor gemma2's
-ring cache yet), and rwkv6.
+port carries so far: dense transformers (sliding windows, post-norms and
+the fp8 (e4m3) KV cache included, with the uniform cache: gemma2's ring
+cache not yet), and rwkv6.
 
   init(gen)                                  -> params (on gen.device)
   init_cache(batch, max_len, device)         -> dense: {"k","v"} (L,B,S,Hkv,D);
@@ -11,6 +11,9 @@ ring cache yet), and rwkv6.
                                                 (None for rwkv: no
                                                 positional cache to extend)
   decode(params, cache, tokens, lengths)     -> (logits, cache)
+  prepare(params)                            -> params for repeated steps
+                                                (dense: per-layer views
+                                                built once)
 
 The cache or state is updated in place (see ``models.transformer``,
 ``models.rwkv6``).
@@ -32,6 +35,7 @@ class ModelAPI:
     prefill: Callable
     decode: Callable
     prefill_chunk: Optional[Callable] = None
+    prepare: Callable = lambda params: params
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
@@ -47,12 +51,13 @@ def build(cfg: ModelConfig) -> ModelAPI:
     # ring cache, a per-layer cache the port does not carry yet
     ring = cfg.window_sized_cache and cfg.local_global_alternating \
         and not cfg.scan_layers
-    if cfg.family != "dense" or cfg.kv_cache_quant or ring:
+    if cfg.family != "dense" or ring:
         raise NotImplementedError(
-            f"{cfg.name}: the PyTorch port serves dense models without an "
-            "fp8 KV cache or a ring cache, and rwkv6, so far; the other "
-            "families and cache variants come with later slices "
-            "(ROADMAP.md)")
+            f"{cfg.name}: the PyTorch port serves dense models (with the "
+            "full-length cache, in the working dtype or fp8) and rwkv6, so "
+            "far; gemma2's ring cache comes with its own slice (model entry "
+            "points and a ring position rule in the decode kernel), the "
+            "other families later (ROADMAP.md)")
     return ModelAPI(
         cfg=cfg,
         init=lambda gen: transformer.init_lm(gen, cfg),
@@ -62,4 +67,5 @@ def build(cfg: ModelConfig) -> ModelAPI:
         decode=lambda p, c, t, l: transformer.decode(p, c, t, l, cfg),
         prefill_chunk=lambda p, c, ch, st, take=None:
             transformer.prefill_chunk(p, c, ch, st, cfg, take=take),
+        prepare=transformer.with_layer_views,
     )

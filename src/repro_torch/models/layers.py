@@ -10,6 +10,9 @@ Conventions
   (default bf16); norms, rope and softmax run in f32.
 * Attention goes through ``repro_torch.kernels.ops``: the Hopper kernels
   for tensors on the card, their plain versions for tensors on the CPU.
+* Nothing on a step's path waits for the card (no ``.item()``, no shape
+  read from a tensor's values), so a step can be captured as a CUDA graph
+  (``serving.executor``).
 """
 from __future__ import annotations
 
@@ -163,17 +166,31 @@ def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** exponent)  # (head_dim/2,)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (..., seq, heads, head_dim); positions broadcastable to (..., seq).
-    Rotates split halves (not interleaved pairs), as the JAX package does."""
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+def rope_tables(positions: torch.Tensor, head_dim: int,
+                theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of the rotary angles at ``positions`` (..., seq), shaped
+    (..., seq, 1, head_dim/2) in f32: a step builds them once and every
+    layer rotates its q and k with them."""
+    freqs = rope_frequencies(head_dim, theta, positions.device)
     angles = positions[..., None].float() * freqs       # (..., seq, hd/2)
-    sin = torch.sin(angles)[..., None, :]
-    cos = torch.cos(angles)[..., None, :]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def rotate(x: torch.Tensor, tables) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim) rotated by ``rope_tables``' (cos,
+    sin). Rotates split halves (not interleaved pairs), as the JAX package
+    does."""
+    cos, sin = tables
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions broadcastable to
+    (..., seq)."""
+    return rotate(x, rope_tables(positions, x.shape[-1], theta))
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +227,7 @@ class MaskSpec:
     ``window``: additionally restrict to kpos > qpos - window ("lengths":
     kpos > lengths[b] - window).
     The JAX package's "full" kind waits for the whisper slice, and its
-    "ring" kind (gemma2's window-sized cache) for the cache variants
+    "ring" kind (gemma2's window-sized cache) for the ring's own slice
     (see ROADMAP.md).
     """
     kind: str = "causal"
@@ -229,7 +246,7 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
                     kv_cache: tuple[torch.Tensor, torch.Tensor],
                     cache_positions: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None,
-                    rope: bool = True):
+                    rope: bool = True, tables: Optional[dict] = None):
     """Self-attention over a KV cache (B, Smax, Hkv, D).
 
     Writes the new K/V into ``kv_cache`` IN PLACE at ``cache_positions``
@@ -244,7 +261,14 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
       and, under a window, ``kpos > lengths - window``), the kernel's
       counts tokens including the new one, hence ``lengths + 1``; its
       window keeps keys from ``lengths + 1 - window`` on, the same set.
+
+    ``tables`` holds what every layer of a step shares, built once by the
+    caller: ``"rope"`` (``rope_tables`` at ``positions``) and, for a
+    decode, ``"pages"`` (``decode_block_table``); what is missing is built
+    here. An fp8 (e4m3) cache stores K/V through ``to_e4m3`` and the
+    kernels widen it to q's dtype, as the JAX model casts the cache.
     """
+    tables = tables or {}
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])
     v = _project(x, params["wv"])
@@ -253,16 +277,22 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
         k = k + params["bk"]
         v = v + params["bv"]
     if rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        rot = tables.get("rope") or rope_tables(positions, cfg.head_dim,
+                                                cfg.rope_theta)
+        q = rotate(q, rot)
+        k = rotate(k, rot)
 
     k_cache, v_cache = kv_cache
     _cache_write(k_cache, k, cache_positions)
     _cache_write(v_cache, v, cache_positions)
 
     if mask.kind == "lengths":
-        out = _decode_attention(q[:, 0], k_cache, v_cache, lengths + 1,
-                                cfg.attn_softcap, mask.window)[:, None]
+        pages = tables.get("pages")
+        if pages is None:
+            pages = decode_block_table(*k_cache.shape[:2], x.device)
+        out = _decode_attention(q[:, 0], k_cache, v_cache, pages,
+                                lengths + 1, cfg.attn_softcap,
+                                mask.window)[:, None]
     elif mask.kind in ("causal", "chunk"):
         if mask.kind == "causal":
             starts = torch.full((x.shape[0],), mask.q_offset,
@@ -286,33 +316,57 @@ def decode_page_size(max_len: int) -> int:
     return math.gcd(max_len, 64)
 
 
-def _decode_attention(q, k_cache, v_cache, lengths, softcap, window=None):
+def decode_block_table(batch: int, max_len: int, device) -> torch.Tensor:
+    """The identity block table (B, P) that views a (B, S) slotted cache as
+    pages of ``decode_page_size(S)`` tokens: row b holds pages
+    [b*P, b*P + P)."""
+    n_pp = max_len // decode_page_size(max_len)
+    return torch.arange(batch * n_pp, dtype=torch.int32,
+                        device=device).view(batch, n_pp)
+
+
+def _decode_attention(q, k_cache, v_cache, tables, lengths, softcap,
+                      window=None):
     """q (B, Hq, D) over a dense (B, S, Hkv, D) cache through the paged
-    decode op: pages of ``decode_page_size(S)`` tokens, block table
-    ``[b*P, b*P+P)`` for row b."""
+    decode op, the cache viewed as the pages ``tables`` names."""
     b, s, hkv, d = k_cache.shape
     ps = decode_page_size(s)
-    n_pp = s // ps
-    tables = torch.arange(b * n_pp, dtype=torch.int32,
-                          device=q.device).view(b, n_pp)
-    k_pages = k_cache.view(b * n_pp, ps, hkv, d)
-    v_pages = v_cache.view(b * n_pp, ps, hkv, d)
+    k_pages = k_cache.view(b * (s // ps), ps, hkv, d)
+    v_pages = v_cache.view(b * (s // ps), ps, hkv, d)
     return ops.paged_attention_op(q, k_pages, v_pages, tables,
                                   lengths.to(torch.int32), softcap=softcap,
                                   window=window)
+
+
+# The e4m3 cast of the JAX package (ml_dtypes): a value whose magnitude
+# exceeds 464 (halfway between 448, the largest finite e4m3, and 480)
+# becomes NaN, sign kept, where torch's cast saturates to +-448; below
+# that the two round alike.
+E4M3_OVERFLOW = 464.0
+
+
+def to_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """``x`` cast to ``torch.float8_e4m3fn`` as JAX casts it."""
+    nan = torch.full_like(x, float("nan")).copysign(x)
+    return torch.where(x.abs() > E4M3_OVERFLOW, nan, x).to(
+        torch.float8_e4m3fn)
 
 
 def _cache_write(cache: torch.Tensor, new: torch.Tensor,
                  write_pos: torch.Tensor) -> None:
     """cache (B, Smax, H, D) <- new (B, Snew, H, D) at rows
     [write_pos[b], write_pos[b] + Snew), in place. Positions past the end
-    are clamped back as ``lax.dynamic_update_slice`` clamps them."""
+    are clamped back as ``lax.dynamic_update_slice`` clamps them. An e4m3
+    cache takes ``to_e4m3(new)``, written as bytes."""
     b, smax = cache.shape[:2]
     snew = new.shape[1]
     start = write_pos.long().clamp(0, smax - snew)
     rows = torch.arange(b, device=cache.device)[:, None]
     cols = start[:, None] + torch.arange(snew, device=cache.device)[None]
-    cache[rows, cols] = new.to(cache.dtype)
+    if cache.dtype == torch.float8_e4m3fn:
+        cache.view(torch.uint8)[rows, cols] = to_e4m3(new).view(torch.uint8)
+    else:
+        cache[rows, cols] = new.to(cache.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +418,10 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig):
 
 
 def embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The rows of ``tokens`` scaled by sqrt(d_model) rounded to the
+    weights' dtype (as JAX rounds it). The scale is a CPU scalar: a CUDA op
+    reads it on the host as a kernel argument, so a captured graph holds it
+    as a constant."""
     x = params["table"][tokens.long()]
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
 

@@ -4,9 +4,9 @@ Counterpart of ``repro/models/transformer.py``. Parameters keep the JAX
 package's pytree: ``blocks`` holds every layer's weights stacked along a
 leading layer axis, and ``lax.scan`` over layers becomes a Python loop
 over that axis. gemma2's local/global sliding windows (the per-layer
-window of ``layer_windows_py``, in both attention kernels) and sandwich
-post-norms are carried; its ring cache, the fp8 KV cache, MoE and VLM
-prefixes wait for later slices (ROADMAP.md).
+window of ``layer_windows_py``, in both attention kernels), sandwich
+post-norms and the fp8 (e4m3) KV cache (``kv_cache_quant``) are carried;
+its ring cache, MoE and VLM prefixes wait for later slices (ROADMAP.md).
 
 Entry points:
   init_lm(gen, cfg)                               -> params
@@ -16,7 +16,10 @@ Entry points:
   decode(params, cache, tokens, lengths, cfg)     -> (logits, cache)
 
 Unlike the JAX functions, these write the new K/V into ``cache`` IN PLACE
-and return the same dict.
+and return the same dict. Each entry point builds what its layers share
+once (the rope tables and, for a decode, the block table), and
+``with_layer_views`` gives a params object its per-layer views once, so a
+step's host work is one pass over the layers.
 """
 from __future__ import annotations
 
@@ -61,10 +64,17 @@ def layer_windows_py(cfg: ModelConfig) -> list:
     return [NO_WINDOW] * cfg.num_layers
 
 
+def cache_dtype(cfg: ModelConfig, dtype=None):
+    """The JAX package's ``_cache_dtype``: e4m3 under ``kv_cache_quant``."""
+    if dtype is not None:
+        return dtype
+    return torch.float8_e4m3fn if cfg.kv_cache_quant else cfg.dtype
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                dtype=None):
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    dtype = dtype or cfg.dtype
+    dtype = cache_dtype(cfg, dtype)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -79,15 +89,27 @@ def _layer(tree, i: int):
             for k, v in tree.items()}
 
 
+def with_layer_views(params):
+    """``params`` plus ``"layers"``: each layer's views of the stacked
+    ``blocks``, built once for the params object (a shallow copy; the
+    tensors are shared). Entry points given params without it build the
+    views once per call."""
+    if "layers" in params:
+        return params
+    n = next(iter(params["blocks"]["attn"].values())).shape[0]
+    return {**params, "layers": [_layer(params["blocks"], i)
+                                 for i in range(n)]}
+
+
 def _block_fn(bp, x, cfg: ModelConfig, *, positions, mask: MaskSpec, window,
-              kv, cache_positions, lengths=None):
+              kv, cache_positions, lengths=None, tables=None):
     mask = MaskSpec(kind=mask.kind,
                     window=None if window >= NO_WINDOW else window,
                     q_offset=mask.q_offset)
     h = L.apply_norm(bp["norm_attn"], x, cfg)
     attn_out, new_kv = L.apply_attention(
         bp["attn"], h, cfg, positions=positions, mask=mask, kv_cache=kv,
-        cache_positions=cache_positions, lengths=lengths)
+        cache_positions=cache_positions, lengths=lengths, tables=tables)
     if "norm_attn_post" in bp:
         attn_out = L.apply_norm(bp["norm_attn_post"], attn_out, cfg)
     x = x + attn_out
@@ -100,11 +122,17 @@ def _block_fn(bp, x, cfg: ModelConfig, *, positions, mask: MaskSpec, window,
 
 def _run_blocks(params, x, cfg: ModelConfig, *, positions, mask, cache,
                 cache_positions, lengths=None):
+    """Every layer over ``x``, with the tables they share built once."""
+    layers = with_layer_views(params)["layers"]
+    tables = {"rope": L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)}
+    if mask.kind == "lengths":
+        tables["pages"] = L.decode_block_table(*cache["k"].shape[1:3],
+                                               x.device)
     for i, window in enumerate(layer_windows_py(cfg)):
         x, _ = _block_fn(
-            _layer(params["blocks"], i), x, cfg, positions=positions,
-            mask=mask, window=window, kv=(cache["k"][i], cache["v"][i]),
-            cache_positions=cache_positions, lengths=lengths)
+            layers[i], x, cfg, positions=positions, mask=mask, window=window,
+            kv=(cache["k"][i], cache["v"][i]),
+            cache_positions=cache_positions, lengths=lengths, tables=tables)
     return x, cache
 
 

@@ -6,7 +6,10 @@ peak 989 TFLOP/s, HBM3 3.35 TB/s and 80 GB; NVLink 4 as 18 links of
 x16 to the host, 64 GB/s each way. The efficiency fractions, ``t_fixed``
 and ``interference`` stay at ``HardwareSpec``'s assumed defaults, as
 ``V5E``'s do: ``perf.calibrate.calibrate_hardware(H100)`` measures them on
-the card at run time.
+the card at run time. ``t_fixed`` keeps the assumed 3 ms although the host
+term of a graphed step (wall minus device time) is measured: it is of the
+same order (PERF.md), and a new price changes admission and chunk sizes,
+which only a benchmark's SLO attainment can judge (ROADMAP.md, queue 3).
 """
 from __future__ import annotations
 

@@ -25,7 +25,11 @@ Two regimes per executor, as in the JAX package:
   device upload and exactly one device to host transfer of the sampled
   tokens per iteration (``_to_host``). Rows pad LEFT with already-prefilled
   prefix tokens and spill right only while ``start + bucket <= max_len``;
-  pad rows duplicate row 0, so their writes are idempotent.
+  pad rows duplicate row 0, so their writes are idempotent. On a CUDA
+  device each step is a CUDA graph replay: one graph per (executor cache,
+  bucket, rows) prefill key and one per executor cache for the decode step
+  (``ExecutorKernels``, the counterpart of the JAX ``jit``s); on the CPU
+  the steps run eagerly.
 
 Stateful families (rwkv6) have no positional cache to extend, so they run
 the scalar reference under either setting, as in the JAX package: each
@@ -39,15 +43,20 @@ request's decode batch then takes in a bogus token (ROADMAP.md, queue 3).
 
 Caches are updated in place (the JAX executor donates its buffers). On a
 CUDA device the attention and the WKV recurrence run in the Hopper kernels.
+An fp8 (e4m3) cache moves between slots and workers as bytes
+(``_bytes``): torch implements no ``index_copy_`` for that dtype.
 """
 from __future__ import annotations
 
+import gc
+import math
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.ops import LaunchTally
 from repro_torch.models import api as model_api
 from repro_torch.sched.backend import SlotExhausted
 from repro_torch.serving.engine import IterationPlan, Worker
@@ -84,15 +93,32 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def _upload(arrays: list[np.ndarray], device) -> torch.Tensor:
+    """One host->device upload of an iteration's int32 inputs, laid end to
+    end in one flat tensor."""
+    return torch.from_numpy(np.concatenate([a.ravel() for a in arrays])).to(
+        device)
+
+
 def _to_device(arrays: list[np.ndarray], device) -> list[torch.Tensor]:
-    """One host->device upload of an iteration's int32 inputs."""
-    flat = torch.from_numpy(np.concatenate([a.ravel() for a in arrays]))
-    flat = flat.to(device)
+    """``_upload``, then a view of each array."""
+    return _split(_upload(arrays, device), [a.shape for a in arrays])
+
+
+def _split(flat: torch.Tensor, shapes) -> list[torch.Tensor]:
+    """Views of consecutive pieces of ``flat`` in ``shapes``."""
     out, off = [], 0
-    for a in arrays:
-        out.append(flat[off:off + a.size].view(a.shape))
-        off += a.size
+    for shape in shapes:
+        n = math.prod(shape)
+        out.append(flat[off:off + n].view(shape))
+        off += n
     return out
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A cache leaf as raw bytes, so that gathers, scatters and copies take
+    every dtype (the e4m3 cache's included)."""
+    return t.view(torch.uint8)
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -106,9 +132,64 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def capture_cuda_graph(fn, pool):
+    """``fn``'s work captured as a ``torch.cuda.CUDAGraph`` whose memory
+    comes from ``pool``: (the graph's replay, ``fn``'s output). Nothing
+    runs on the card until a replay. The garbage collector is off during
+    the capture: a collection could free another graph (say, of a
+    cluster no longer referenced), and destroying a graph is not
+    permitted while a stream captures, which invalidates the capture."""
+    graph = torch.cuda.CUDAGraph()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            out = fn()
+    finally:
+        if collecting:
+            gc.enable()
+    return graph.replay, out
+
+
+class _StepGraph:
+    """One captured step: its static int32 inputs (one flat buffer, which
+    each replay's inputs are copied into), the static buffer it writes the
+    sampled tokens into, and the launches each replay makes."""
+
+    def __init__(self, params, flat, replay, out, tally):
+        self.params = params        # the weights it reads, kept alive
+        self.flat = flat
+        self._replay = replay
+        self.out = out
+        self.tally = tally
+
+    def replay(self, flat: torch.Tensor) -> torch.Tensor:
+        self.flat.copy_(flat)
+        self._replay()
+        self.tally.replay()
+        return self.out
+
+
 class ExecutorKernels:
     """Slot-indexed entry points over one cache geometry, shared by every
-    executor in a cluster."""
+    executor in a cluster.
+
+    A step is keyed as the JAX ``jit``s are: ``("prefill", bucket, rows)``
+    or ``("decode",)``. On a CUDA device ``step`` replays a
+    ``torch.cuda.CUDAGraph`` per (cache, key): a graph holds its cache's
+    addresses, and every worker owns a cache. A key is run eagerly once and
+    captured at its first use (``warmup`` captures (bucket, 1) for every
+    bucket and the decode step for each cache given, as the JAX warmup
+    compiles them); ``prefill_traces`` / ``decode_traces`` count the
+    captures as the JAX counters count traces, ``capture_seconds`` sums
+    their time. All graphs of the cluster share one memory pool for their
+    scratch: steps run one at a time on one stream, and each graph's
+    static inputs and outputs lie outside the pool and stay referenced
+    while it lives, so graphs replay in any order. A failed capture or
+    replay raises; nothing runs the step eagerly in its place. On the CPU
+    every step runs eagerly (the device the caller asked for) and nothing
+    is captured.
+    """
 
     def __init__(self, api, max_slots: int, max_len: int, device):
         self.api = api
@@ -116,6 +197,12 @@ class ExecutorKernels:
         self.max_len = max_len
         self.device = torch.device(device)
         self.buckets = _bucket_grid(max_len)
+        self.graphed = self.device.type == "cuda"
+        self.prefill_traces = 0
+        self.decode_traces = 0
+        self.capture_seconds = 0.0
+        self._graphs: dict = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
 
     def bucket_for(self, take: int) -> int:
         for b in self.buckets:
@@ -124,17 +211,26 @@ class ExecutorKernels:
         raise ValueError(f"chunk of {take} tokens exceeds max_len "
                          f"{self.max_len}")
 
+    def input_shapes(self, key) -> list[tuple]:
+        """The int32 inputs of a step, in order: a prefill's chunk, slots,
+        starts and takes; a decode's tokens and lengths."""
+        if key[0] == "prefill":
+            _, bucket, rows = key
+            return [(rows, bucket), (rows,), (rows,), (rows,)]
+        return [(self.max_slots,), (self.max_slots,)]
+
     # ---------------------------------------------------------- entry points
     def prefill_fn(self, params, cache, chunk, slots, starts, takes):
         """Batched bucketed prefill: gathers the ``slots`` rows, runs one
         padded ``prefill_chunk`` on them, scatters the rows back, and
         samples every row's next token on the device."""
         idx = slots.long()
-        view = {k: a.index_select(1, idx) for k, a in cache.items()}
+        view = {k: _bytes(a).index_select(1, idx).view(a.dtype)
+                for k, a in cache.items()}
         logits, view = self.api.prefill_chunk(params, view, chunk, starts,
                                               take=takes)
         for k, a in cache.items():
-            a.index_copy_(1, idx, view[k])
+            _bytes(a).index_copy_(1, idx, _bytes(view[k]))
         return logits.argmax(dim=-1).to(torch.int32), cache
 
     def decode_fn(self, params, cache, tokens, lengths):
@@ -145,24 +241,79 @@ class ExecutorKernels:
     def copy_fn(dst, src, dslot: int, sslot: int):
         """Device-to-device KV slot copy (migration fast path), in place."""
         for k in dst:
-            dst[k][:, dslot].copy_(src[k][:, sslot])
+            _bytes(dst[k])[:, dslot].copy_(_bytes(src[k])[:, sslot])
         return dst
 
+    def _eager(self, params, cache, key, flat: torch.Tensor) -> torch.Tensor:
+        fn = self.prefill_fn if key[0] == "prefill" else self.decode_fn
+        toks, _ = fn(params, cache, *_split(flat, self.input_shapes(key)))
+        return toks
+
+    def step(self, params, cache, key, flat: torch.Tensor) -> torch.Tensor:
+        """One step of ``key`` on ``cache`` with its int32 inputs ``flat``
+        (``input_shapes`` laid end to end): the sampled tokens. On a CUDA
+        device a graph replay, captured at the key's first use."""
+        if not self.graphed:
+            return self._eager(params, cache, key, flat)
+        gkey = (id(params), cache["k"].data_ptr(), cache["v"].data_ptr(),
+                key)
+        if gkey not in self._graphs:
+            self._graphs[gkey] = self._capture(params, cache, key, flat)
+        return self._graphs[gkey].replay(flat)
+
+    # --------------------------------------------------------------- graphs
+    def _capture(self, params, cache, key, flat) -> _StepGraph:
+        """Run ``key`` eagerly once on a copy of ``flat`` (the kernel
+        launchers cache their device queries in that run), then capture it
+        into the cluster's pool with that copy as the graph's static input
+        buffer and the eager run's tokens as its static output. Both lie
+        outside the pool, whose memory another graph's replay may reuse as
+        scratch: a graph's output in the pool could be overwritten before
+        it is read. The eager run and the replays write the same K/V rows,
+        so a capture at first use changes nothing a step would not."""
+        static = flat.clone()
+        out = self._eager(params, cache, key, static)
+        t0 = time.perf_counter()
+        tally = LaunchTally()
+        replay, _ = tally.record(lambda: capture_cuda_graph(
+            lambda: out.copy_(self._eager(params, cache, key, static)),
+            self._pool))
+        _sync(self.device)
+        self.capture_seconds += time.perf_counter() - t0
+        if key[0] == "prefill":
+            self.prefill_traces += 1
+        else:
+            self.decode_traces += 1
+        return _StepGraph(params, static, replay, out, tally)
+
+    @property
+    def captures(self) -> int:
+        return self.prefill_traces + self.decode_traces
+
+    def pool_bytes(self) -> int:
+        """Device memory the graphs' shared pool holds (its segments)."""
+        pool = tuple(self._pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == pool)
+
     # --------------------------------------------------------------- warmup
-    def warmup(self, params) -> None:
-        """Run the (bucket, 1-row) grid and the decode step once on a
-        throwaway cache, so the first scheduled iterations measure steady
-        state (kernels built and loaded, allocator warm)."""
-        dev = self.device
-        cache = self.api.init_cache(self.max_slots, self.max_len, dev)
-        zero = torch.zeros((1,), dtype=torch.int32, device=dev)
-        one = torch.ones((1,), dtype=torch.int32, device=dev)
-        for b in self.buckets:
-            self.prefill_fn(params, cache, torch.zeros(
-                (1, b), dtype=torch.int32, device=dev), zero, zero, one)
-        zeros = torch.zeros((self.max_slots,), dtype=torch.int32, device=dev)
-        self.decode_fn(params, cache, zeros, zeros)
-        _sync(dev)
+    def warmup(self, params, caches) -> None:
+        """Step the (bucket, 1-row) grid and the decode step once on each
+        of ``caches`` (on a CUDA device: capture them), then zero the
+        caches, so the first scheduled iterations measure steady state.
+        Each step is a placeholder: slot 0 from position 0, one token."""
+        for cache in caches:
+            for key in [("prefill", b, 1) for b in self.buckets] + \
+                    [("decode",)]:
+                n = sum(math.prod(s) for s in self.input_shapes(key))
+                flat = torch.zeros((n,), dtype=torch.int32,
+                                   device=self.device)
+                if key[0] == "prefill":
+                    flat[-1] = 1                   # takes
+                self.step(params, cache, key, flat)
+            for a in cache.values():
+                a.zero_()
+        _sync(self.device)
 
 
 class RealExecutor:
@@ -178,7 +329,7 @@ class RealExecutor:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.api.init(gen)
-        self.params = params
+        self.params = self.api.prepare(params)
         self.max_slots = max_slots
         self.max_len = max_len
         self.wid = wid
@@ -361,7 +512,7 @@ class RealExecutor:
                 slots[i] = slots[0]
                 starts[i] = starts[0]
                 takes[i] = takes[0]
-            calls.append((self.kernels.prefill_fn,
+            calls.append((("prefill", bucket, rows),
                           [chunk, slots, starts, takes]))
             pending.append(("prefill", finals))
         if plan.decode_reqs:
@@ -369,17 +520,17 @@ class RealExecutor:
             tokens = np.zeros(self.max_slots, np.int32)
             for r, s in dpairs:
                 tokens[s] = self.generated[r.rid][-1]
-            calls.append((self.kernels.decode_fn,
-                          [tokens, np.array(self.lengths)]))
+            calls.append((("decode",), [tokens, np.array(self.lengths)]))
             pending.append(("decode", dpairs))
         if not calls:
             return
-        dev = _to_device([a for _, arrs in calls for a in arrs], self.device)
-        tok_parts = []
-        for fn, arrs in calls:
-            args, dev = dev[:len(arrs)], dev[len(arrs):]
-            toks, self.cache = fn(self.params, self.cache, *args)
-            tok_parts.append(toks)
+        flat = _upload([a for _, arrs in calls for a in arrs], self.device)
+        tok_parts, off = [], 0
+        for key, arrs in calls:
+            n = sum(a.size for a in arrs)
+            tok_parts.append(self.kernels.step(self.params, self.cache, key,
+                                               flat[off:off + n]))
+            off += n
         # exactly one device->host transfer per iteration
         host = _to_host(torch.cat(tok_parts))
         off = 0
@@ -402,8 +553,9 @@ class ClusterRealExecutors:
     parameters (e.g. from ``models.convert.params_from_jax``); without them
     the weights are drawn from a ``torch.Generator`` seeded with ``seed``.
     ``device=None`` means CUDA and raises without a card. ``warmup`` runs
-    every entry point once on a throwaway cache or state (kernels built and
-    loaded before the first measured iteration).
+    every entry point once before the first measured iteration (kernels
+    built and loaded; on a CUDA device the dense fast path's warmup keys
+    captured for every worker's cache).
     """
 
     def __init__(self, cfg, n_workers: int, max_slots: int = 8,
@@ -414,22 +566,23 @@ class ClusterRealExecutors:
         api = model_api.build(cfg)
         if params is None:
             params = api.init(torch.Generator(device=device).manual_seed(seed))
-        self.params = params            # replicas share weights
+        self.params = api.prepare(params)   # replicas share weights
         self._owner: dict[int, int] = {}     # rid -> owning wid
         kernels = ExecutorKernels(api, max_slots, max_len, device) \
             if batched and api.prefill_chunk is not None else None
         self.kernels = kernels
         self.execs = {
             i: RealExecutor(cfg, max_slots=max_slots, max_len=max_len,
-                            params=params, batched=batched, wid=i,
+                            params=self.params, batched=batched, wid=i,
                             kernels=kernels, owner=self._owner,
                             device=device)
             for i in range(n_workers)
         }
         if warmup and kernels is not None:
-            kernels.warmup(params)
+            kernels.warmup(self.params,
+                           [e.cache for e in self.execs.values()])
         elif warmup and api.prefill_chunk is None:
-            _warmup_stateful(api, params, max_len, device)
+            _warmup_stateful(api, self.params, max_len, device)
 
     def on_finish(self, req) -> None:
         wid = self._owner.get(req.rid)
