@@ -24,8 +24,13 @@ Phases (one line each, a non-zero exit on any failure):
             another order; wkv6 against the sequential scan, bf16 and f32
             inputs alike: out rtol = atol = 3e-4, state rtol 3e-4 atol 3e-3,
             the JAX package's own tolerances); every attention case runs
-            again with e4m3 K/V (the fp8 cache) at the same tolerances
-            and variant; then timed against the plain version, its bound
+            again with e4m3 K/V (the fp8 cache) at the same tolerances,
+            each held to the variant's e4m3 instance, and bf16 q adds
+            e4m3 cases across the edges of the kernels' rings of raw e4m3
+            tiles (zero-filled rows past Smax or a split, D = 64, 16-token
+            shuffled pages with holes, window floors inside a tile,
+            gemma2's prefill split over 4, 2 and 1 blocks); then timed
+            against the plain version, its bound
             and, for attention, torch's scaled_dot_product_attention on the
             same work (``time_ms``: the card sleeps before each timed call,
             so no host time is timed), the timed attention shapes again
@@ -64,7 +69,8 @@ Phases (one line each, a non-zero exit on any failure):
             idle share, host ms (wall - device), attention vs matmul time
             (kernels matched by the names the wrappers export; attention
             and wkv6 must show device time); profile_gemma2 the same for
-            full-width gemma2-2b
+            full-width gemma2-2b, profile_fp8 for qwen2-1.5b with the fp8
+            (e4m3) cache
   calibrate perf.calibrate on the card: calibrate_hardware(H100) at serving
             shapes with and without the GEMM pass and
             calibrate_interference over decode batches (1, 4, 8) x chunks
@@ -84,8 +90,9 @@ Phases (one line each, a non-zero exit on any failure):
 Each serve phase zeroes the kernels' launch counts just before it and reads
 them just after, per device kernel variant too (a CUDA graph replay adds
 what its capture counted): the dense paths must launch the tensor-core
-prefill and decode kernels, the gemma2 paths too (head_dim 256); the rwkv
-path both wkv6 kernels. The dense paths' steps are CUDA graph replays.
+prefill and decode kernels, the gemma2 paths too (head_dim 256), the fp8
+paths their e4m3 instances and no other; the rwkv path both wkv6 kernels.
+The dense paths' steps are CUDA graph replays.
 
 The last lines are the kernels' JSON record, the run's seconds, the
 nvidia-smi line and {"ok": true, "device": {...}}. Without a CUDA device,
@@ -497,6 +504,12 @@ def _attention_variant(dtype, d) -> str:
         d in chunked_prefill.TENSOR_CORE_HEAD_DIMS else "cuda_core"
 
 
+def _e4m3(variant: str, kv) -> str:
+    """The ``launches_by_variant`` key of ``variant``'s instance for K/V in
+    ``kv`` (None: q's dtype)."""
+    return variant if kv is None else f"{variant}_e4m3"
+
+
 def _check_variant_rule(d, dtype) -> None:
     """Each attention library's C variant function picks, for (d, dtype),
     the variant its wrapper's ``TENSOR_CORE_HEAD_DIMS`` names."""
@@ -552,9 +565,65 @@ def _check_prefill_splits() -> None:
         f"PREFILL_SPLITS")
 
 
+# The e4m3 edge cases' split counts (PREFILL_SPLITS' gemma2 serving shapes)
+E4M3_PREFILL_SPLITS = {"e4m3_gemma2_splits4": 4, "e4m3_gemma2_splits2": 2,
+                       "e4m3_gemma2_splits1": 1}
+
+
+def _e4m3_prefill_edges(gen) -> dict:
+    """Prefill cases (bf16 q, e4m3 K/V) across the edges of the e4m3 ring
+    of raw tiles: a causal frontier at a ragged Smax, so zero-filled rows
+    land in a staged tile; D = 64 (four 16-byte copies a row); a window
+    floor inside a staged tile at D = 64, 128 and 256; gemma2's D = 256
+    serving shapes whose key tiles split over clusters of 4, 2 and 1
+    blocks (``E4M3_PREFILL_SPLITS``)."""
+    pc = functools.partial(_prefill_case, gen, dtype=torch.bfloat16, kv=E4M3)
+    gemma2 = dict(hq=8, hkv=4, d=256, softcap=50.0, window=4096)
+    return {
+        "e4m3_frontier_smax999": pc(2, 45, 999, starts=[954, 100]),
+        "e4m3_d64_g6_smax333": pc(2, 70, 333, starts=[263, 0], d=64),
+        "e4m3_d64_g1_window50": pc(1, 64, 700, starts=[636], window=50,
+                                   hq=4, hkv=4, d=64),
+        "e4m3_window100_floor401": pc(2, 64, 1000, starts=[500, 37],
+                                      window=100),
+        "e4m3_d256_window300_floor701": pc(
+            1, 96, 1500, starts=[1000], window=300, softcap=50.0, hq=8,
+            hkv=4, d=256),
+        "e4m3_gemma2_splits4": pc(1, 256, MAX_LEN, starts=[700], **gemma2),
+        "e4m3_gemma2_splits2": pc(1, 1024, GEMMA2_LEN, starts=[3000],
+                                  **gemma2),
+        "e4m3_gemma2_splits1": pc(8, 256, MAX_LEN, **gemma2),
+    }
+
+
+def _e4m3_decode_edges(gen) -> dict:
+    """Decode cases (bf16 q, e4m3 K/V) across the edges of each warp's
+    e4m3 ring: splits that end mid-tile at the length (zero-filled rows);
+    D = 64 at G = 6 and G = 16; 16-token shuffled pages with -1 holes at
+    D = 128 and 256; window floors inside a staged tile (the per-row
+    address path) at D = 128 and 256."""
+    dc = functools.partial(_decode_case, gen, dtype=torch.bfloat16, kv=E4M3)
+    return {
+        "e4m3_lengths_mid_tile": dc(4, MAX_LEN, lengths=[17, 100, 333, 1000]),
+        "e4m3_d64": dc(4, 512, d=64, lengths=[1, 17, 250, 511]),
+        "e4m3_d64_g16": dc(2, 512, d=64, hq=32, hkv=2, lengths=[300, 77]),
+        "e4m3_page16_shuffled_holes": dc(3, 400, shuffle=True, ps=16,
+                                         holes=True, lengths=[15, 177, 399]),
+        "e4m3_d256_page16_shuffled_holes": dc(
+            2, 512, shuffle=True, ps=16, holes=True, lengths=[250, 509],
+            hq=8, hkv=4, d=256, softcap=50.0),
+        "e4m3_window100_floor_mid_tile": dc(
+            4, MAX_LEN, lengths=[150, 333, 700, 1024], window=100),
+        "e4m3_d256_window250_floor_mid_tile": dc(
+            2, MAX_LEN, lengths=[300, 1000], hq=8, hkv=4, d=256, window=250,
+            softcap=50.0),
+    }
+
+
 def phase_kernels(card: str) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(0)
     _check_prefill_splits()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     pre_k, pre_p = (chunked_prefill.chunked_prefill_attention,
                     ref.chunked_prefill_attention_ref)
     dec_k, dec_p = paged_attention.paged_attention, ref.paged_attention_ref
@@ -602,19 +671,24 @@ def phase_kernels(card: str) -> dict:
                 gen, 8, 256, MAX_LEN, dtype, softcap=50.0, hq=8, hkv=4,
                 d=256),
         }
+        if kv is not None and dtype == torch.bfloat16:
+            cases |= _e4m3_prefill_edges(gen)
         for name, (args, kw) in cases.items():
             q, kc = args[0], args[1]
             _check_variant_rule(q.shape[-1], dtype)
             errs = []
-            _expect_variant(_attention_variant(dtype, q.shape[-1]),
+            _expect_variant(_e4m3(_attention_variant(dtype, q.shape[-1]), kv),
                             lambda: errs.append(_compare(
                                 f"prefill/{name}/{tag}", pre_k, pre_p, args,
                                 kw, dtype)), chunked_prefill)
+            nsplit = chunked_prefill.splits(
+                q.shape[0], q.shape[1], q.shape[2], kc.shape[2], q.shape[3],
+                kc.shape[1], kw["window"], dtype)
             say("kernels", kernel="chunked_prefill", case=name, dtype=tag,
-                splits=chunked_prefill.splits(
-                    q.shape[0], q.shape[1], q.shape[2], kc.shape[2],
-                    q.shape[3], kc.shape[1], kw["window"], dtype),
-                max_abs_err=f"{errs[0]:.3e}")
+                splits=nsplit, max_abs_err=f"{errs[0]:.3e}")
+            want = E4M3_PREFILL_SPLITS.get(name) if sms == 132 else None
+            check(want is None or nsplit == want, f"prefill/{name}/{tag}: "
+                  f"{nsplit} splits, the case is for {want}")
         # G = 6, D = 128, 64-token pages unless named; splits: blocks per
         # (b, kv-head), from B * Hkv and the table's pages
         cases = {
@@ -648,11 +722,13 @@ def phase_kernels(card: str) -> dict:
                 gen, 4, MAX_LEN, dtype, lengths=[63, 64, 65, 1000], hq=16,
                 hkv=2, window=64),
         }
+        if kv is not None and dtype == torch.bfloat16:
+            cases |= _e4m3_decode_edges(gen)
         for name, (args, kw) in cases.items():
             q, kp, _, tables, _ = args
             _check_variant_rule(q.shape[-1], dtype)
             errs = []
-            _expect_variant(_attention_variant(dtype, q.shape[-1]),
+            _expect_variant(_e4m3(_attention_variant(dtype, q.shape[-1]), kv),
                             lambda: errs.append(_compare(
                                 f"decode/{name}/{tag}", dec_k, dec_p, args,
                                 kw, dtype)), paged_attention)
@@ -700,9 +776,13 @@ def phase_kernels(card: str) -> dict:
                                    kv=kv, **heads)
         byts, flops = _prefill_work(pargs, pkw["window"])
         name = key if kv is None else f"{key}_e4m3"
+        q, kc = pargs[0], pargs[1]
         records[name] = dict(
             name=name, route="cuda",
-            variant=_attention_variant(dtype, pargs[0].shape[-1]),
+            variant=_e4m3(_attention_variant(dtype, q.shape[-1]), kv),
+            splits=chunked_prefill.splits(
+                q.shape[0], q.shape[1], q.shape[2], kc.shape[2], q.shape[3],
+                kc.shape[1], pkw["window"], dtype),
             source="src/repro_torch/kernels/csrc/chunked_prefill.cu",
             replaces="src/repro/kernels/chunked_prefill.py:103",
             shape=shape if kv is None else f"{shape}, K/V e4m3",
@@ -784,8 +864,9 @@ def _time_decode(gen, key, lengths, shape, s=MAX_LEN, kv=None,
     head_dim, softcap, window for ``_decode_case``; ``kv``: e4m3 K/V, the
     record then named ``<key>_e4m3``): checked against the plain version,
     then timed beside it, its bound and SDPA. A window and e4m3 K/V go to
-    the helpers only when set, so that kernel_ab.py can run this on a tree
-    whose helpers take neither."""
+    the helpers only when set, and the e4m3 variant key is spelled out
+    here (not ``_e4m3``), so that kernel_ab.py can run this in another
+    tree's module, whose helpers may take neither."""
     dtype = torch.bfloat16
     if kv is not None:
         case = dict(case, kv=kv)
@@ -795,9 +876,14 @@ def _time_decode(gen, key, lengths, shape, s=MAX_LEN, kv=None,
     extra = {} if kw.get("window") is None else {"window": kw["window"]}
     byts, flops = _decode_work(args, **extra)
     kernel, plain = paged_attention.paged_attention, ref.paged_attention_ref
+    q, kp, _, tables, _ = args
     return dict(
         name=key, route="cuda",
-        variant=_attention_variant(dtype, args[0].shape[-1]),
+        variant=_attention_variant(dtype, q.shape[-1])
+        + ("" if kv is None else "_e4m3"),
+        splits=paged_attention.splits(q.shape[0], q.shape[1], kp.shape[2],
+                                      q.shape[2], tables.shape[1], dtype,
+                                      kp.dtype),
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:107", shape=shape,
         max_abs_err=_compare(f"decode/timed_{key}", kernel, plain, args, kw,
@@ -811,11 +897,13 @@ def _time_decode(gen, key, lengths, shape, s=MAX_LEN, kv=None,
 
 def _say_timed(r: dict, card: str) -> None:
     lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-    widen = {"widen_ms": f"{r['widen_ms']:.4f}"} if "widen_ms" in r else {}
+    extra = {"widen_ms": f"{r['widen_ms']:.4f}"} if "widen_ms" in r else {}
+    if "splits" in r:
+        extra["splits"] = r["splits"]
     say("kernels", timed=r["name"], shape=repr(r["shape"]),
         ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
         bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
-        library_ms=lib, **widen, card=repr(card))
+        library_ms=lib, **extra, card=repr(card))
 
 
 def _bound(byts: int, flops: int, dtype) -> dict:
@@ -917,7 +1005,8 @@ def phase_model(phase: str = "model") -> None:
 
         result = []
         with _ShadowAttention(dtype, cfg.kv_cache_quant) as shadow:
-            _expect_variant(_attention_variant(dtype, cfg.head_dim),
+            _expect_variant(_e4m3(_attention_variant(dtype, cfg.head_dim),
+                                  E4M3 if cfg.kv_cache_quant else None),
                             lambda: result.extend(run()), chunked_prefill,
                             paged_attention)
         got, toks = result
@@ -1334,8 +1423,8 @@ def _run(execs, wid, plan, eager=False) -> None:
         r.prefilled_tokens += t
 
 
-def phase_profile(card: str, arch: str = ARCH,
-                  phase: str = "profile") -> list:
+def phase_profile(card: str, arch: str = ARCH, phase: str = "profile",
+                  changes: Optional[dict] = None) -> list:
     """Where an iteration's time goes: torch.profiler over one prefill
     iteration (8 rows x 256 tokens), one decode iteration (8 slots at
     ~260 tokens) and one mixed iteration (a 256-token chunk + 8 decodes),
@@ -1349,10 +1438,11 @@ def phase_profile(card: str, arch: str = ARCH,
     where the profiler reports no kernels of a graph replay, it is the
     CUDA-event span of the iteration, and the by-name breakdown is the
     eager run's. idle share = 1 - device / wall; host ms = wall - device,
-    the iteration's host term (the cost model's ``t_fixed``). Returns
-    (label, plan, wall ms, device ms) per graphed iteration."""
+    the iteration's host term (the cost model's ``t_fixed``). ``changes``
+    vary the config (profile_fp8: the e4m3 cache). Returns (label, plan,
+    wall ms, device ms) per graphed iteration."""
     rows = []
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **(changes or {}))
     execs = ClusterRealExecutors(cfg, 2, max_slots=16, max_len=MAX_LEN,
                                  seed=0)
     modes = {"graphs": 0, "eager": 1}
@@ -1749,13 +1839,15 @@ def main() -> None:
     phase_executor_rwkv(card)
     phase_graphs(card, ARCH)
     phase_graphs(card, GEMMA2)
+    fp8 = {"kv_cache_quant": True}
     profiled = phase_profile(card)
     phase_profile(card, GEMMA2, "profile_gemma2")
+    phase_profile(card, ARCH, "profile_fp8", fp8)
     phase_calibrate(card, profiled)
     attention = {"chunked_prefill": chunked_prefill,
                  "paged_attention": paged_attention}
     tensor_cores = dict.fromkeys(attention, ("tensor_core",))
-    fp8 = {"kv_cache_quant": True}
+    tensor_cores_e4m3 = dict.fromkeys(attention, ("tensor_core_e4m3",))
     launches = {
         "serve": phase_serve(card, "serve", ARCH, attention, tensor_cores),
         "serve_rwkv": phase_serve(card, "serve_rwkv", RWKV, {"wkv6": wkv6},
@@ -1763,9 +1855,9 @@ def main() -> None:
         "serve_gemma2": phase_serve(card, "serve_gemma2", GEMMA2, attention,
                                     tensor_cores),
         "serve_fp8": phase_serve(card, "serve_fp8", ARCH, attention,
-                                 tensor_cores, fp8),
+                                 tensor_cores_e4m3, fp8),
         "serve_gemma2_fp8": phase_serve(card, "serve_gemma2_fp8", GEMMA2,
-                                        attention, tensor_cores, fp8),
+                                        attention, tensor_cores_e4m3, fp8),
     }
     # a record's launches: its device kernel's on its main path (the e4m3
     # records' on the same path with the fp8 cache)
@@ -1780,7 +1872,7 @@ def main() -> None:
                                        "paged_attention.tensor_core"),
             "paged_attention_gemma2_long": ("serve_gemma2",
                                             "paged_attention.tensor_core")}
-    main |= {f"{name}_e4m3": (f"{phase}_fp8", key)
+    main |= {f"{name}_e4m3": (f"{phase}_fp8", f"{key}_e4m3")
              for name, (phase, key) in main.items() if "wkv6" not in name}
     kernels = []
     for name, r in records.items():
@@ -1792,7 +1884,8 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"]} | {
-            k: r[k] for k in ("library_note", "widen_ms") if k in r})
+            k: r[k] for k in ("library_note", "widen_ms", "splits")
+            if k in r})
     print(json.dumps({"kernels": kernels}))
     say("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(f"nvidia-smi: {smi()}")

@@ -26,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The attention kernels' K/V beside q: q's own dtype (0) or fp8 e4m3 (1),
-# which the kernels widen to q's dtype as they stage it
+# which the kernels widen to q's dtype (the tensor-core ones in shared memory)
 KV_E4M3 = torch.float8_e4m3fn
 
 

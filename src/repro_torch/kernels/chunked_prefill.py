@@ -8,7 +8,7 @@ cache prefix [0, starts[b] + i]; the chunk's own K/V are already written.
 
   q:       (B, Sq, Hq, D)    — the chunk's queries (rope applied)
   k_cache: (B, Smax, Hkv, D)  — q's dtype, or fp8 e4m3 (widened to q's
-  v_cache: (B, Smax, Hkv, D)    dtype as the kernel stages it)
+  v_cache: (B, Smax, Hkv, D)    dtype in the kernel's shared memory)
   starts:  (B,) int32
 
 Unlike the Pallas kernel, ragged Sq and Smax are masked, not asserted.
@@ -16,10 +16,11 @@ The library picks one of two device kernels from (q's dtype, D) alone: the
 tensor-core one for bf16 at a D of ``TENSOR_CORE_HEAD_DIMS``, the CUDA-core
 f32 one otherwise, whatever the K/V dtype. ``launches`` counts the
 wrapper's launches in this process and ``launches_by_variant`` splits them
-by device kernel (under a CUDA graph, ``ops.LaunchTally`` adds what a
-capture counted on each replay);
+by device kernel and K/V type (``*_e4m3``: the kernel's e4m3 instance; under
+a CUDA graph, ``ops.LaunchTally`` adds what a capture counted on each
+replay);
 ``KERNELS`` names the device kernels (as ``torch.profiler`` reports them)
-by variant; ``splits`` gives the blocks of a cluster that split each block
+by variant key; ``splits`` gives the blocks of a cluster that split each block
 of queries' keys in a call of given sizes (more than 1 only at D = 256).
 """
 from __future__ import annotations
@@ -42,13 +43,23 @@ LIB = CudaLibrary("chunked_prefill.cu", {
     "chunked_prefill_splits": [_I] * 8,
 })
 KERNELS = {"cuda_core": "chunked_prefill_kernel",
-           "tensor_core": "chunked_prefill_mma_kernel"}
+           "tensor_core": "chunked_prefill_mma_kernel",
+           "cuda_core_e4m3": "chunked_prefill_kernel",
+           "tensor_core_e4m3": "chunked_prefill_mma_kernel"}
 _VARIANTS = ("cuda_core", "tensor_core")   # chunked_prefill_variant's codes
 # head dims whose bf16 inputs go to the tensor-core kernel
 TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 
 launches = 0
 launches_by_variant = dict.fromkeys(KERNELS, 0)
+
+
+def variant_key(d: int, dtype: int, kv: int) -> str:
+    """The ``launches_by_variant`` key of a launch: the device kernel the
+    library picks for (D, q's dtype code), ``_e4m3`` for its instance over
+    e4m3 K/V (``kv`` = 1)."""
+    code = LIB.lib().chunked_prefill_variant(d, dtype)
+    return _VARIANTS[code] + ("_e4m3" if kv else "")
 
 
 def splits(b: int, sq: int, hq: int, hkv: int, d: int, smax: int,
@@ -90,13 +101,14 @@ def chunked_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    kv = kv_code(k_cache)
     err = lib.chunked_prefill_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         starts.data_ptr(), out.data_ptr(), b, sq, hq, hkv, d, smax,
-        float(softcap or 0.0), int(window or 0), dtype, kv_code(k_cache),
+        float(softcap or 0.0), int(window or 0), dtype, kv,
         stream_handle(q.device))
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
     launches += 1
-    launches_by_variant[_VARIANTS[lib.chunked_prefill_variant(d, dtype)]] += 1
+    launches_by_variant[variant_key(d, dtype, kv)] += 1
     return out

@@ -92,6 +92,34 @@ __device__ __forceinline__ uint4 widen_e4m3<float>(const e4m3* src) {
                     __float_as_uint(b.y));
 }
 
+// The tensor-core kernels' e4m3 stage: ROWS rows of D e4m3 values that
+// cp.async has landed in shared memory (row after row, unpadded) widened
+// into bf16 rows of `stride` elements, the layout their ldmatrix reads.
+// Thread t of THREADS widens 16-byte chunks t, t + THREADS, ... (THREADS a
+// multiple of D / 16, so its column c stays put): one 16-byte load, 16
+// exact widenings, two 16-byte stores, the half at byte 16 first when
+// c & 4, so that the eight stores of a quarter-warp fall in distinct banks.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void widen_rows_e4m3(const e4m3* src, __nv_bfloat16* dst,
+                                                int stride, int t) {
+  constexpr int CR = D / 16;
+  static_assert(THREADS % CR == 0 && ROWS * CR % THREADS == 0, "whole rows a pass");
+  const int c = t % CR;
+  const bool swap = (c & 4) != 0;
+#pragma unroll
+  for (int j = 0; j < ROWS * CR / THREADS; ++j) {
+    const int idx = t + j * THREADS;
+    const uint4 x = reinterpret_cast<const uint4*>(src)[idx];
+    const uint32_t a0 = swap ? x.z : x.x, a1 = swap ? x.w : x.y;
+    const uint32_t b0 = swap ? x.x : x.z, b1 = swap ? x.y : x.w;
+    uint4* out = reinterpret_cast<uint4*>(dst + (idx / CR) * stride + c * 16);
+    out[swap ? 1 : 0] = make_uint4(e4m3x2_to_bf16x2(a0), e4m3x2_to_bf16x2(a0 >> 16),
+                                   e4m3x2_to_bf16x2(a1), e4m3x2_to_bf16x2(a1 >> 16));
+    out[swap ? 0 : 1] = make_uint4(e4m3x2_to_bf16x2(b0), e4m3x2_to_bf16x2(b0 >> 16),
+                                   e4m3x2_to_bf16x2(b1), e4m3x2_to_bf16x2(b1 >> 16));
+  }
+}
+
 // One 16-byte chunk of T of a staged K or V row: chunk `chunk` of src when
 // K/V share T, else the same elements widened from e4m3.
 template <typename T, typename KV>

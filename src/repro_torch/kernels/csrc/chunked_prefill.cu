@@ -39,11 +39,26 @@
 //   lane c against key c.
 //
 // K/V may be fp8 e4m3 (an fp8 KV cache) with q in bf16 or f32; the variant
-// still follows q's dtype. Both kernels widen each e4m3 tile to q's type as
-// they stage it (e4m3 -> f16 -> f32 [-> bf16], exact) into the layout the
-// rest already reads, so the arithmetic after the stage is unchanged. The
-// e4m3 tiles are loaded and stored by the threads, which gives up the
-// tensor-core variant's cp.async overlap for K/V: a first, simple design.
+// still follows q's dtype, and the products stay bf16 (or f32) ones: the
+// JAX model widens its e4m3 cache to q's dtype before attention, so fp8
+// tensor-core products (which would round Q and P to fp8) are not used.
+// * The tensor-core kernel brings the e4m3 bytes in by cp.async, as the
+//   bf16 path brings its tiles: a 2-stage ring of raw tiles (K x D bytes
+//   for K and for V, rows unpadded, half a bf16 tile's bytes; one 16-byte
+//   copy carries 16 values; rows past smax zero-filled, and byte 0 is +0 in
+//   e4m3). Once a raw tile has landed the block widens it in shared memory
+//   (e4m3 -> f16 -> f32 -> bf16 by cvt.rn.f16x2.e4m3x2, exact; 16 values a
+//   thread a pass) into one bf16 K/V tile pair laid out as the bf16 ring's
+//   stages (`mma_stride`), between two barriers, while the next raw tile's
+//   copies are in flight; fragments, softmax, merge and output are the bf16
+//   path's. Shared memory at D = 256: Q 33,792 B, the widened pair 33,792,
+//   the raw ring 32,768 (100,352 in all; bf16 101,376), so two blocks an SM
+//   and the same split counts. A third raw stage fits at D <= 128 but made
+//   it slower (PERF.md §6). Raw rows are unpadded: the widening reads them
+//   in order, and 16 bytes of padding would put two rows of one read phase
+//   on the same banks at D = 64.
+// * The CUDA-core kernel widens each e4m3 tile to q's type as it stages it,
+//   loaded and stored by the threads (off the serving path: f32 q).
 //
 // Both walk key tiles from the window floor up to the causal frontier
 // min(Smax, start + q0 + nq) only (the TPU kernel's skipped KV blocks become
@@ -174,18 +189,6 @@ using rt::ldsm_x4_trans;
 using rt::mma_bf16;
 using rt::pack_bf16;
 
-// One 16-byte chunk (8 bf16) of a staged K/V row: a cp.async when K/V are
-// bf16, else 8 e4m3 values widened and stored by the thread (zeros when
-// !in, src then unread).
-template <typename KV>
-__device__ __forceinline__ void stage_bf16x8(bf16* dst, const KV* src, bool in) {
-  if constexpr (std::is_same_v<KV, bf16>) {
-    rt::cp_async16(dst, src, in);
-  } else {
-    *reinterpret_cast<uint4*>(dst) = in ? rt::widen_e4m3<bf16>(src) : make_uint4(0, 0, 0, 0);
-  }
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(rt::kFull, v, 1));
   return fmaxf(v, __shfl_xor_sync(rt::kFull, v, 2));
@@ -224,10 +227,26 @@ struct MmaPlan {
 template <int D>
 __host__ __device__ constexpr int mma_stride() { return D + 8; }
 
-template <int D>
+// Stages of the e4m3 ring of raw tiles (a third, which fits at D <= 128,
+// made the qwen2 shape 1.06x slower on an NVIDIA H100 80GB HBM3 at 700 W;
+// PERF.md §6).
+constexpr int kRawStages = 2;
+
+// Q, then bf16: the 2-stage ring of K/V tiles; e4m3: one widened K/V tile
+// pair and the ring of raw e4m3 tiles (K x D bytes each, unpadded).
+template <int D, typename KV>
 __host__ __device__ constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * (kMmaRows + 2 * kMmaStages * MmaPlan<D>::kKeys) * mma_stride<D>();
+  if constexpr (std::is_same_v<KV, bf16>) {
+    return sizeof(bf16) * (kMmaRows + 2 * kMmaStages * MmaPlan<D>::kKeys) * mma_stride<D>();
+  } else {
+    return sizeof(bf16) * (kMmaRows + 2 * MmaPlan<D>::kKeys) * mma_stride<D>() +
+           kRawStages * 2 * MmaPlan<D>::kKeys * D;
+  }
 }
+// chunked_prefill_splits counts on two blocks an SM at D = 256 (228 KB an
+// SM, 1 KB of it reserved for each block), whatever the K/V type
+static_assert(2 * (mma_smem_bytes<256, bf16>() + 1024) <= 228 * 1024, "one block an SM");
+static_assert(2 * (mma_smem_bytes<256, rt::e4m3>() + 1024) <= 228 * 1024, "one block an SM");
 
 // What a block receives from the splits of its cluster, over Q and the ring
 // once every split is done with them: (m, l) of each split's 64 rows, and
@@ -241,7 +260,9 @@ __host__ __device__ constexpr size_t recv_bytes(int splits) {
   return sizeof(float2) * kMaxSplits * kMmaRows +
          sizeof(float) * splits * kMmaRows * recv_stride(D, splits);
 }
-static_assert(recv_bytes<256>(kMaxSplits) <= mma_smem_bytes<256>(), "recv > Q + ring");
+static_assert(recv_bytes<256>(kMaxSplits) <= mma_smem_bytes<256, bf16>() &&
+                  recv_bytes<256>(kMaxSplits) <= mma_smem_bytes<256, rt::e4m3>(),
+              "recv > Q + ring");
 
 // mma.sync register layout (lane = 4 * gid + tq): an accumulator tile
 // (16 x 8) holds rows gid (c[0], c[1]) and gid + 8 (c[2], c[3]) at columns
@@ -259,6 +280,7 @@ chunked_prefill_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc
                            bf16* __restrict__ out, int sq, int hq, int hkv, int smax, int g,
                            int bq, int splits, float scale, float softcap, int window) {
   constexpr bool W = MmaPlan<D>::kWide;
+  constexpr bool E = std::is_same_v<KV, rt::e4m3>;
   constexpr int K = MmaPlan<D>::kKeys;
   constexpr int S = mma_stride<D>();
   constexpr int CH = D / 8;                   // 16-byte chunks per row
@@ -267,8 +289,10 @@ chunked_prefill_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc
   constexpr int NS = K / 8;                   // 8-key score tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);            // kMmaRows x S
-  bf16* ks = qs + kMmaRows * S;                            // stages x K x S
-  bf16* vs = ks + kMmaStages * K * S;
+  bf16* ks = qs + kMmaRows * S;                            // (stages x) K x S
+  bf16* vs = ks + (E ? 1 : kMmaStages) * K * S;
+  // e4m3: stages x (K, V) x K x D bytes
+  rt::e4m3* raw = reinterpret_cast<rt::e4m3*>(vs + K * S);
 
   const int nsplit = W ? splits : 1;
   const int split = W ? blockIdx.x % nsplit : 0;
@@ -311,8 +335,8 @@ chunked_prefill_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc
         const int row = tid / CH + j * RP;
         const bool in = kt + row < smax;
         const size_t off = kv_base + (in ? kt + row : 0) * kv_row;
-        stage_bf16x8(kd + row * S + (tid % CH) * 8, kc + off, in);
-        stage_bf16x8(vd + row * S + (tid % CH) * 8, vc + off, in);
+        rt::cp_async16(kd + row * S + (tid % CH) * 8, kc + off, in);
+        rt::cp_async16(vd + row * S + (tid % CH) * 8, vc + off, in);
       }
     } else {
       for (int idx = tid; idx < K * CH; idx += blockDim.x) {
@@ -320,13 +344,38 @@ chunked_prefill_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc
         const bool in = kt + row < smax;
         const size_t off =
             ((static_cast<size_t>(b) * smax + (in ? kt + row : 0)) * hkv + h) * D + c * 8;
-        stage_bf16x8(kd + row * S + c * 8, kc + off, in);
-        stage_bf16x8(vd + row * S + c * 8, vc + off, in);
+        rt::cp_async16(kd + row * S + c * 8, kc + off, in);
+        rt::cp_async16(vd + row * S + c * 8, vc + off, in);
       }
     }
   };
-  if (ntiles > 0) load_tile(0, kt0);
-  rt::cp_async_commit();
+  // e4m3: thread t copies 16-byte chunk t % CR (16 values) of rows t / CR,
+  // + RR, ... of a raw tile, zeros past smax
+  constexpr int CR = D / 16;
+  constexpr int RR = kMmaWarps * rt::kWarp / CR;
+  const size_t raw_base = (static_cast<size_t>(b) * smax * hkv + h) * D + (tid % CR) * 16;
+  auto load_raw = [&](int stage, int kt) {
+    rt::e4m3* kd = raw + stage * 2 * K * D + (tid % CR) * 16;
+    rt::e4m3* vd = kd + K * D;
+#pragma unroll
+    for (int j = 0; j < K / RR; ++j) {
+      const int row = tid / CR + j * RR;
+      const bool in = kt + row < smax;
+      const size_t off = raw_base + (in ? kt + row : 0) * kv_row;
+      rt::cp_async16(kd + row * D, kc + off, in);
+      rt::cp_async16(vd + row * D, vc + off, in);
+    }
+  };
+  if constexpr (E) {
+#pragma unroll
+    for (int i = 0; i + 1 < kRawStages; ++i) {
+      if (i < ntiles) load_raw(i, kt0 + i * K);
+      rt::cp_async_commit();
+    }
+  } else {
+    if (ntiles > 0) load_tile(0, kt0);
+    rt::cp_async_commit();
+  }
 
   const int gid = lane >> 2, tq = lane & 3;
   const int wrow0 = warp * 16;
@@ -354,10 +403,24 @@ chunked_prefill_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc
 
   for (int it = 0; it < ntiles; ++it) {
     const int kt = kt0 + it * K;
-    if (it + 1 < ntiles) load_tile((it + 1) & 1, kt + K);
-    rt::cp_async_commit();
-    rt::cp_async_wait<1>();                   // Q and this tile have landed
-    __syncthreads();
+    if constexpr (E) {
+      // the raw tile kRawStages - 1 ahead is copied while this one is
+      // widened and used; the widening overwrites the pair the previous
+      // tile's products read, which the barrier below has waited out
+      if (it + kRawStages - 1 < ntiles)
+        load_raw((it + kRawStages - 1) % kRawStages, kt + (kRawStages - 1) * K);
+      rt::cp_async_commit();
+      rt::cp_async_wait<kRawStages - 1>();    // Q and this raw tile have landed
+      __syncthreads();
+      rt::widen_rows_e4m3<D, 2 * K, kMmaWarps * rt::kWarp>(
+          raw + (it % kRawStages) * 2 * K * D, ks, S, tid);
+      __syncthreads();
+    } else {
+      if (it + 1 < ntiles) load_tile((it + 1) & 1, kt + K);
+      rt::cp_async_commit();
+      rt::cp_async_wait<1>();                 // Q and this tile have landed
+      __syncthreads();
+    }
     if constexpr (!W) {
       if (it == 0) {
 #pragma unroll
@@ -367,8 +430,8 @@ chunked_prefill_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc
     const bool skip = !warp_live || kt > warp_qmax ||
                       (window > 0 && kt + K <= warp_qmin - window + 1);
     if (!skip) {
-      const bf16* kd = ks + (it & 1) * K * S;
-      const bf16* vd = vs + (it & 1) * K * S;
+      const bf16* kd = E ? ks : ks + (it & 1) * K * S;
+      const bf16* vd = E ? vs : vs + (it & 1) * K * S;
       float s[NS][4];
 #pragma unroll
       for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
@@ -463,7 +526,9 @@ chunked_prefill_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc
         }
       }
     }
-    __syncthreads();                          // this stage may be refilled
+    // this stage may be refilled (e4m3: the next iteration's first barrier
+    // keeps the widened pair until every warp is done with it)
+    if constexpr (!E) __syncthreads();
   }
 
   if (nsplit == 1) {
@@ -555,7 +620,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
                        int window, int splits, cudaStream_t stream) {
   const int g = hq / hkv;
   const int bq = min(sq, kMmaRows / g);
-  constexpr size_t smem = mma_smem_bytes<D>();
+  constexpr size_t smem = mma_smem_bytes<D, KV>();
   auto kernel = chunked_prefill_mma_kernel<D, KV>;
   cudaError_t err = rt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;

@@ -73,11 +73,20 @@
 //   memory allows.
 //
 // K/V pages may be fp8 e4m3 (an fp8 KV cache) with q in bf16 or f32; the
-// variant still follows q's dtype. Each warp widens its e4m3 tiles to q's
-// type as it stages them (e4m3 -> f16 -> f32 [-> bf16], exact) into the
-// ring layout the rest already reads; those tiles are loaded and stored by
-// the lanes instead of cp.async, so the next tile's load no longer overlaps
-// the current tile's products: a first, simple design.
+// variant still follows q's dtype, and the products stay bf16 (or f32)
+// ones, as the JAX model widens its cache to q's dtype before attention.
+// * In the tensor-core kernel each warp's ring holds raw e4m3 tiles (16 x D
+//   bytes for K and for V, rows unpadded, half a bf16 stage), brought in by
+//   cp.async through the same table and one-page address path as the bf16
+//   tiles, 16 values a copy, rows past the split zero-filled (byte 0 is +0
+//   in e4m3). Once a raw tile has landed the warp widens it in shared
+//   memory (e4m3 -> f16 -> f32 -> bf16 by cvt.rn.f16x2.e4m3x2, exact) into
+//   one bf16 K/V tile pair in the bf16 ring's layout, between two
+//   __syncwarp, while the next raw tile's copies are in flight; everything
+//   after is the bf16 path's. A warp's ring takes 33,280 B at D = 256
+//   (bf16: 33,792), so clusters of 16 fit as they do for bf16.
+// * The CUDA-core kernel's lanes widen each e4m3 tile as they stage it
+//   (off the serving path: f32 q).
 #include <cooperative_groups.h>
 
 #include "attention_common.cuh"
@@ -259,31 +268,28 @@ constexpr int kMmaKeys = 16;     // keys of a warp tile (the M of m16n8k16)
 template <int D>
 __host__ __device__ constexpr int mma_stride() { return D + 8; }   // ldmatrix without conflicts
 
-template <int D>
-__host__ __device__ constexpr size_t mma_ring_bytes() {
-  return sizeof(bf16) * kWarps * kStages * 2 * kMmaKeys * mma_stride<D>();
+// A warp's ring, in bytes. bf16: kStages stages of a K and a V tile (16
+// rows of `mma_stride`). e4m3: one widened bf16 K/V tile pair in that
+// layout, then kStages stages of raw e4m3 K and V tiles (16 x D bytes each,
+// rows unpadded).
+template <int D, typename KV>
+__host__ __device__ constexpr size_t mma_warp_ring_bytes() {
+  if constexpr (std::is_same_v<KV, bf16>) {
+    return sizeof(bf16) * kStages * 2 * kMmaKeys * mma_stride<D>();
+  } else {
+    return sizeof(bf16) * 2 * kMmaKeys * mma_stride<D>() + kStages * 2 * kMmaKeys * D;
+  }
 }
 
 // Q (kRows x stride), the staged table, wm and wl, the received partials,
 // then the warps' rings (wacc, kWarps * D * kRows floats, overlays them
 // once they are done with).
-template <int D>
+template <int D, typename KV>
 __host__ __device__ constexpr size_t mma_smem_bytes() {
-  static_assert(sizeof(float) * kWarps * D * kRows <= mma_ring_bytes<D>(), "wacc > rings");
+  static_assert(sizeof(float) * kWarps * D * kRows <= kWarps * mma_warp_ring_bytes<D, KV>(),
+                "wacc > rings");
   return sizeof(bf16) * kRows * mma_stride<D>() + sizeof(int) * kTableSlots + kWmWlBytes +
-         recv_bytes(D) + mma_ring_bytes<D>();
-}
-
-// One 16-byte chunk (8 bf16) of a staged K/V row: a cp.async when K/V are
-// bf16, else 8 e4m3 values widened and stored by the lane (zeros when
-// !in, src then unread).
-template <typename KV>
-__device__ __forceinline__ void stage_bf16x8(bf16* dst, const KV* src, bool in) {
-  if constexpr (std::is_same_v<KV, bf16>) {
-    rt::cp_async16(dst, src, in);
-  } else {
-    *reinterpret_cast<uint4*>(dst) = in ? rt::widen_e4m3<bf16>(src) : make_uint4(0, 0, 0, 0);
-  }
+         recv_bytes(D) + kWarps * mma_warp_ring_bytes<D, KV>();
 }
 
 template <int D, int NT, typename KV>
@@ -298,6 +304,7 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp
   // D = 256 a tile that raises no head's max skips the rescale (at D = 128
   // the skip made one slot 1.02-1.03x slower; PERF.md §6)
   constexpr bool W = D > 128;
+  constexpr bool E = std::is_same_v<KV, rt::e4m3>;
   constexpr int S = mma_stride<D>();
   constexpr int CH = D / 8;      // 16-byte chunks per row
   constexpr int KD = D / 16;     // k-steps of K Q^T, and 16-row tiles of O^T
@@ -329,7 +336,10 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp
   const Range rg = split_range(first_key(len, window), len, ps, blockIdx.x, gridDim.x);
   const int ntiles = rg.hi > rg.lo ? (rg.hi - rg.lo + kMmaKeys - 1) / kMmaKeys : 0;
   const int mine = ntiles > warp ? (ntiles - warp + kWarps - 1) / kWarps : 0;
-  bf16* ring = ring_base + warp * kStages * 2 * TILE;
+  constexpr int WRING = static_cast<int>(mma_warp_ring_bytes<D, KV>() / sizeof(bf16));
+  bf16* ring = ring_base + warp * WRING;
+  rt::e4m3* raw = reinterpret_cast<rt::e4m3*>(ring + 2 * TILE);   // e4m3: after the pair
+  constexpr int RAW = kMmaKeys * D;                                 // bytes of a raw tile
   auto tile_start = [&](int i) { return rg.lo + (warp + i * kWarps) * kMmaKeys; };
   // Lane l copies 16-byte chunk l % CH of rows l / CH, + RP, ... (a warp
   // instruction covers whole rows). With one warp per scheduler the address
@@ -351,13 +361,35 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp
       const bool in = k0 + r < rg.hi;
       size_t off = 0;
       if (in) off = one_page ? base + r * row_step : token_offset(table, k0 + r, ps, hkv, h, D) + c * 8;
-      stage_bf16x8(kd + r * S, kp + off, in);
-      stage_bf16x8(vd + r * S, vp + off, in);
+      rt::cp_async16(kd + r * S, kp + off, in);
+      rt::cp_async16(vd + r * S, vp + off, in);
+    }
+  };
+  // e4m3: lane l copies 16-byte chunk l % CR (16 values) of rows l / CR,
+  // + RR, ... of a raw tile, through the same one-page address path
+  constexpr int CR = D / 16, RR = rt::kWarp / CR;
+  const int cr = lane % CR, rr0 = lane / CR;
+  auto load_raw = [&](int i) {   // this warp's i-th tile into raw stage i % kStages
+    const int k0 = tile_start(i);
+    rt::e4m3* kd = raw + (i % kStages) * 2 * RAW + cr * 16;
+    rt::e4m3* vd = kd + RAW;
+    const size_t base = one_page ? token_offset(table, k0, ps, hkv, h, D) + cr * 16 : 0;
+#pragma unroll
+    for (int j = 0; j < kMmaKeys / RR; ++j) {
+      const int r = rr0 + j * RR;
+      const bool in = k0 + r < rg.hi;
+      size_t off = 0;
+      if (in) off = one_page ? base + r * row_step : token_offset(table, k0 + r, ps, hkv, h, D) + cr * 16;
+      rt::cp_async16(kd + r * D, kp + off, in);
+      rt::cp_async16(vd + r * D, vp + off, in);
     }
   };
   rt::cp_async_wait<0>();                  // Q and the table have landed
   __syncthreads();
-  if (mine > 0) load_tile(0);
+  if (mine > 0) {
+    if constexpr (E) load_raw(0);
+    else load_tile(0);
+  }
   rt::cp_async_commit();
 
   // Q^T fragments (the B operand of S^T = K Q^T): n-tile nt holds heads
@@ -389,11 +421,23 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp
   }
 
   for (int it = 0; it < mine; ++it) {
-    if (it + 1 < mine) load_tile(it + 1);
-    rt::cp_async_commit();
-    rt::cp_async_wait<1>();                // this tile has landed
-    __syncwarp();
-    const bf16* kd = ring + (it % kStages) * 2 * TILE;
+    if constexpr (E) {
+      // the next raw tile is copied while this one is widened and used;
+      // the widening overwrites the pair the previous tile's products read
+      if (it + 1 < mine) load_raw(it + 1);
+      rt::cp_async_commit();
+      rt::cp_async_wait<1>();              // this raw tile has landed
+      __syncwarp();
+      rt::widen_rows_e4m3<D, 2 * kMmaKeys, rt::kWarp>(raw + (it % kStages) * 2 * RAW, ring, S,
+                                                     lane);
+      __syncwarp();
+    } else {
+      if (it + 1 < mine) load_tile(it + 1);
+      rt::cp_async_commit();
+      rt::cp_async_wait<1>();              // this tile has landed
+      __syncwarp();
+    }
+    const bf16* kd = ring + (E ? 0 : (it % kStages) * 2 * TILE);
     const bf16* vd = kd + TILE;
     const int mi = lane / 8;
     float s[NT][4];
@@ -453,7 +497,9 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) rt::mma_bf16(acc[dt][nt], va, pb[nt][0], pb[nt][1]);
     }
-    __syncwarp();                          // this stage may be refilled
+    // this stage may be refilled (e4m3: the next iteration's first
+    // __syncwarp keeps the widened pair until the warp is done with it)
+    if constexpr (!E) __syncwarp();
   }
 
   // merge the warps into the block's partial, rescaled to its max
@@ -675,11 +721,11 @@ template <int D, int NT, typename KV>
 int mma_cap() {
   static const int cap = [] {
     auto kernel = paged_attention_mma_kernel<D, NT, KV>;
-    if (rt::allow_smem(kernel, mma_smem_bytes<D>()) != cudaSuccess) {
+    if (rt::allow_smem(kernel, mma_smem_bytes<D, KV>()) != cudaSuccess) {
       cudaGetLastError();
       return kPortableCluster;
     }
-    return cluster_cap(kernel, kWarps * rt::kWarp, mma_smem_bytes<D>());
+    return cluster_cap(kernel, kWarps * rt::kWarp, mma_smem_bytes<D, KV>());
   }();
   return cap;
 }
@@ -687,7 +733,7 @@ int mma_cap() {
 template <int D, int NT, typename KV>
 cudaError_t launch_mma(const Call& c, int splits) {
   auto kernel = paged_attention_mma_kernel<D, NT, KV>;
-  constexpr size_t smem = mma_smem_bytes<D>();
+  constexpr size_t smem = mma_smem_bytes<D, KV>();
   cudaError_t err = rt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   return launch_clusters(kernel, splits, c.b * c.hkv, kWarps * rt::kWarp, smem, c.stream,

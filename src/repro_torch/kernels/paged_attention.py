@@ -7,7 +7,7 @@ package:
 
   q:            (B, Hq, D)
   k_pages:      (n_pages, page_size, Hkv, D)  — q's dtype or fp8 e4m3
-  v_pages:      (n_pages, page_size, Hkv, D)    (widened as staged)
+  v_pages:      (n_pages, page_size, Hkv, D)    (widened in shared memory)
   block_tables: (B, max_pages) int32   — per-request page ids (< 0: page 0)
   lengths:      (B,) int32             — tokens in cache, incl. the new one
 
@@ -22,10 +22,11 @@ The library picks one of two device kernels from (q's dtype, D) alone: the
 tensor-core one for bf16 at a D of ``TENSOR_CORE_HEAD_DIMS``, the CUDA-core
 f32 one otherwise, whatever the K/V dtype.
 ``launches`` counts the wrapper's launches in this process and
-``launches_by_variant`` splits them by device kernel (under a CUDA graph,
+``launches_by_variant`` splits them by device kernel and K/V type
+(``*_e4m3``: the kernel's e4m3 instance; under a CUDA graph,
 ``ops.LaunchTally`` adds what a capture counted on each replay);
 ``KERNELS`` names the device kernels (as ``torch.profiler`` reports them)
-by variant; ``splits`` gives S for a call's sizes. ``kernels.ops`` is the
+by variant key; ``splits`` gives S for a call's sizes. ``kernels.ops`` is the
 dispatch that sends CPU tensors to ``kernels.ref`` instead.
 """
 from __future__ import annotations
@@ -49,13 +50,23 @@ LIB = CudaLibrary("paged_attention.cu", {
     "paged_attention_splits": [_I] * 7,
 })
 KERNELS = {"cuda_core": "paged_attention_kernel",
-           "tensor_core": "paged_attention_mma_kernel"}
+           "tensor_core": "paged_attention_mma_kernel",
+           "cuda_core_e4m3": "paged_attention_kernel",
+           "tensor_core_e4m3": "paged_attention_mma_kernel"}
 _VARIANTS = ("cuda_core", "tensor_core")   # paged_attention_variant's codes
 # head dims whose bf16 inputs go to the tensor-core kernel
 TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 
 launches = 0
 launches_by_variant = dict.fromkeys(KERNELS, 0)
+
+
+def variant_key(d: int, dtype: int, kv: int) -> str:
+    """The ``launches_by_variant`` key of a launch: the device kernel the
+    library picks for (D, q's dtype code), ``_e4m3`` for its instance over
+    e4m3 K/V (``kv`` = 1)."""
+    code = LIB.lib().paged_attention_variant(d, dtype)
+    return _VARIANTS[code] + ("_e4m3" if kv else "")
 
 
 def splits(b: int, hq: int, hkv: int, d: int, max_pages: int,
@@ -101,14 +112,15 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    kv = kv_code(k_pages)
     err = lib.paged_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, hq, hkv, d, ps, block_tables.shape[1],
-        float(softcap or 0.0), int(window or 0), dtype, kv_code(k_pages),
+        float(softcap or 0.0), int(window or 0), dtype, kv,
         stream_handle(q.device))
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
     launches += 1
-    launches_by_variant[_VARIANTS[lib.paged_attention_variant(d, dtype)]] += 1
+    launches_by_variant[variant_key(d, dtype, kv)] += 1
     return out

@@ -525,3 +525,29 @@ def test_exported_kernel_names_are_the_sources_kernels(module):
     assert set(module.KERNELS.values()) == kernels
     assert getattr(module, "launches_by_variant",
                    dict.fromkeys(module.KERNELS)).keys() == module.KERNELS.keys()
+
+
+@pytest.mark.parametrize("module", [tchunk, tpaged],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+def test_e4m3_launches_count_under_their_own_variant_keys(module,
+                                                          monkeypatch):
+    """A launch over e4m3 K/V counts under its variant's ``_e4m3`` key, a
+    key of ``launches_by_variant`` naming the variant's own device kernel
+    (chip_smoke.py holds every e4m3 case and the fp8 serve paths to these
+    keys); the variant itself still follows q's dtype and D alone. The
+    library's variant function is stood in for (no card here)."""
+    name = module.__name__.rsplit(".", 1)[-1]
+    dims = module.TENSOR_CORE_HEAD_DIMS
+    monkeypatch.setattr(module.LIB, "lib", lambda: type("Lib", (), {
+        f"{name}_variant": staticmethod(
+            lambda d, dtype: int(dtype == 1 and d in dims))})())
+    bf16, f32 = 1, 0
+    for d, dtype, kv, want in ((128, bf16, 0, "tensor_core"),
+                               (128, bf16, 1, "tensor_core_e4m3"),
+                               (256, bf16, 1, "tensor_core_e4m3"),
+                               (96, bf16, 1, "cuda_core_e4m3"),
+                               (128, f32, 1, "cuda_core_e4m3"),
+                               (64, f32, 0, "cuda_core")):
+        key = module.variant_key(d, dtype, kv)
+        assert key == want and key in module.launches_by_variant
+        assert module.KERNELS[key] == module.KERNELS[key.removesuffix("_e4m3")]

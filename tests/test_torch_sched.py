@@ -73,7 +73,14 @@ def test_real_torch_backend_decisions_equal_jax_simulator(policy, two_class,
         assert gen and max(len(g) for g in gen) >= r.output_len
 
 
-def _serve_matches_jax_json_keys(capsys, arch):
+def _serve_matches_jax_json_keys(capsys, monkeypatch, arch):
+    """The port's serve CLI in real mode on the CPU, its backend on the cost
+    model's clock (as the parity test above builds it): the model still
+    runs, but whether every request finishes inside the run's horizon no
+    longer depends on how fast this CPU runs it beside other test workers."""
+    as_backend = ClusterRealExecutors.as_backend
+    monkeypatch.setattr(ClusterRealExecutors, "as_backend",
+                        lambda self, clock="wall": as_backend(self, "model"))
     argv = ["--mode", "real", "--arch", arch, "--rate", "2",
             "--duration", "4", "--workers", "2", "--seed", "1", "--json"]
     row = serve.main(argv + ["--device", "cpu"])
@@ -89,12 +96,13 @@ def _serve_matches_jax_json_keys(capsys, arch):
     return row
 
 
-def test_serve_real_mode_finishes_with_the_jax_json_keys(capsys):
-    _serve_matches_jax_json_keys(capsys, "qwen2-1.5b")
+def test_serve_real_mode_finishes_with_the_jax_json_keys(capsys, monkeypatch):
+    _serve_matches_jax_json_keys(capsys, monkeypatch, "qwen2-1.5b")
 
 
-def test_serve_real_mode_rwkv6_finishes_with_the_jax_json_keys(capsys):
-    row = _serve_matches_jax_json_keys(capsys, RWKV)
+def test_serve_real_mode_rwkv6_finishes_with_the_jax_json_keys(capsys,
+                                                               monkeypatch):
+    row = _serve_matches_jax_json_keys(capsys, monkeypatch, RWKV)
     assert row["arch"] == "rwkv6-smoke"
 
 
