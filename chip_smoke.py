@@ -44,6 +44,20 @@ Phases (one line each, a non-zero exit on any failure):
             real keys (tensor-core variants of both attention kernels
             in bf16, CUDA-core ones in f32)
   model_fp8  the same for full-width qwen2-1.5b with its cache in e4m3
+  model_ring  full-width gemma2-2b with the window-sized ring cache, bf16
+            and e4m3: one slot prefilled to 4200 tokens on a full cache,
+            copied into the ring cache (the local layers' 4096-slot rings
+            wrapped), then 16 decode steps on the ring through the paged
+            kernel (counts zeroed just before, read just after: only its
+            tensor_core / tensor_core_e4m3 instance, no plain version),
+            logits held to the full cache's and to the ring's through the
+            plain attention; times the kernel over the wrapped ring
+  paged_store  a PagedKVStore on the card at qwen2-1.5b's decode shape,
+            bf16 and e4m3: 8 requests of 64-512 tokens written in ragged
+            pieces (pages scattered by the allocator), the paged kernel
+            over the allocator's tables for every layer (counts as in
+            model_ring), held to its plain version and to plain attention
+            over gather_dense; times the kernel over the scattered pages
   model_rwkv  the same for full-width rwkv6-7b: prefill then decode steps
             through the wkv6 kernel (each call also checked against the
             plain scan on the same live inputs: within the kernel
@@ -138,6 +152,7 @@ from repro_torch.perf.calibrate import (calibrate_hardware,  # noqa: E402
 from repro_torch.serving.engine import IterationPlan  # noqa: E402
 from repro_torch.serving import executor as texec  # noqa: E402
 from repro_torch.serving.executor import ClusterRealExecutors  # noqa: E402
+from repro_torch.serving.paged_store import PagedKVStore  # noqa: E402
 
 DEV = torch.device("cuda")
 E4M3 = torch.float8_e4m3fn
@@ -862,10 +877,8 @@ def _time_decode(gen, key, lengths, shape, s=MAX_LEN, kv=None,
                  **case) -> dict:
     """The decode kernel's record on one timed shape (``case``: heads,
     head_dim, softcap, window for ``_decode_case``; ``kv``: e4m3 K/V, the
-    record then named ``<key>_e4m3``): checked against the plain version,
-    then timed beside it, its bound and SDPA. A window and e4m3 K/V go to
-    the helpers only when set, and the e4m3 variant key is spelled out
-    here (not ``_e4m3``), so that kernel_ab.py can run this in another
+    record then named ``<key>_e4m3``). A window and e4m3 K/V go to the
+    helpers only when set, so that kernel_ab.py can run this in another
     tree's module, whose helpers may take neither."""
     dtype = torch.bfloat16
     if kv is not None:
@@ -873,25 +886,35 @@ def _time_decode(gen, key, lengths, shape, s=MAX_LEN, kv=None,
         key, shape = f"{key}_e4m3", f"{shape}, K/V e4m3"
     args, kw = _decode_case(gen, len(lengths), s, dtype,
                             lengths=list(lengths), **case)
+    return _decode_record(key, shape, args, kw)
+
+
+def _decode_record(name, shape, args, kw) -> dict:
+    """The decode kernel's record on given inputs: checked against the
+    plain version, then timed beside it, its bound and SDPA. The e4m3
+    variant key is spelled out here (not ``_e4m3``), for kernel_ab.py as
+    above."""
+    q, kp, _, tables, _ = args
+    dtype = q.dtype
     extra = {} if kw.get("window") is None else {"window": kw["window"]}
     byts, flops = _decode_work(args, **extra)
     kernel, plain = paged_attention.paged_attention, ref.paged_attention_ref
-    q, kp, _, tables, _ = args
+    e4m3 = kp.dtype != dtype
     return dict(
-        name=key, route="cuda",
+        name=name, route="cuda",
         variant=_attention_variant(dtype, q.shape[-1])
-        + ("" if kv is None else "_e4m3"),
+        + ("_e4m3" if e4m3 else ""),
         splits=paged_attention.splits(q.shape[0], q.shape[1], kp.shape[2],
                                       q.shape[2], tables.shape[1], dtype,
                                       kp.dtype),
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:107", shape=shape,
-        max_abs_err=_compare(f"decode/timed_{key}", kernel, plain, args, kw,
+        max_abs_err=_compare(f"decode/timed_{name}", kernel, plain, args, kw,
                              dtype),
         ms=time_ms(lambda: kernel(*args, **kw)),
         plain_ms=time_ms(lambda: plain(*args, **kw)),
         library_ms=time_ms(_sdpa_decode(args, **extra)),
-        **({} if kv is None else _widen_ms(args)),
+        **(_widen_ms(args) if e4m3 else {}),
         **_sdpa_note(kw), **_bound(byts, flops, dtype))
 
 
@@ -1189,6 +1212,304 @@ def phase_model_rwkv() -> None:
               f"{s_tol:.3e})")
         del params, s_got, s_want, s_scan
         torch.cuda.empty_cache()
+
+
+# gemma2's ring phase: decode steps past the 4200-token prompt, the local
+# layers' 4096-slot rings long wrapped
+RING_STEPS = 16
+RING_PROMPT = 4200
+
+
+class _NoPlain:
+    """Inside this block a call of a plain attention version counts in
+    ``calls``: the main path on the card must make none."""
+
+    def __enter__(self):
+        self.saved = (ref.paged_attention_ref,
+                      ref.chunked_prefill_attention_ref)
+        self.calls = 0
+
+        def count(fn):
+            def plain(*a, **kw):
+                self.calls += 1
+                return fn(*a, **kw)
+            return plain
+
+        ref.paged_attention_ref = count(self.saved[0])
+        ref.chunked_prefill_attention_ref = count(self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        ref.paged_attention_ref, ref.chunked_prefill_attention_ref = \
+            self.saved
+
+
+def _ring_from(full, ring, n: int) -> None:
+    """Scaffolding of the ring phase (not a port API): fill ``ring`` (the
+    per-layer cache of ``window_sized_cache``) from the full-length cache
+    ``full`` that holds positions [0, n): a ring layer's slot ``p mod
+    size`` gets position ``p`` for ``p`` in [n - size, n), as decoding
+    from an empty cache would have left it; a full-length layer a copy."""
+    for name in ("k", "v"):
+        for i, dst in enumerate(ring[name]):
+            src = full[name][i].view(torch.uint8)
+            dst = dst.view(torch.uint8)
+            size = dst.shape[1]
+            if size == src.shape[1]:
+                dst.copy_(src)
+            else:
+                pos = torch.arange(n - size, n, device=DEV)
+                dst[:, pos % size] = src[:, pos]
+
+
+def _ring_record(ring, fp8: bool) -> dict:
+    """The decode kernel's record on the ring phase's shape: one slot
+    over layer 0's wrapped 4096-slot ring (64-token pages, an identity
+    table, kernel length 4096, no window), q drawn from a seed."""
+    dtype = torch.bfloat16
+    k, v = ring["k"][0], ring["v"][0]
+    s, hkv, d = k.shape[1:]
+    ps = decode_page_size(s)
+    hq, softcap = GEMMA2_HEADS["hq"], GEMMA2_HEADS["softcap"]
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    args = (_rand(gen, (1, hq, d), dtype), k.view(s // ps, ps, hkv, d),
+            v.view(s // ps, ps, hkv, d),
+            torch.arange(s // ps, dtype=torch.int32, device=DEV)[None],
+            torch.tensor([s], dtype=torch.int32, device=DEV))
+    kw = dict(softcap=softcap, window=None)
+    name = "paged_attention_ring" + ("_e4m3" if fp8 else "")
+    shape = (f"slots=1 ring={s} (wrapped, positions {RING_PROMPT - s}.."
+             f"{RING_PROMPT - 1}) page=64 length={s} Hq={hq} Hkv={hkv} "
+             f"D={d} softcap={softcap} no window bf16"
+             + (", K/V e4m3" if fp8 else ""))
+    return _decode_record(name, shape, args, kw)
+
+
+def phase_model_ring(card: str):
+    """Full-width gemma2-2b with the window-sized ring cache
+    (``window_sized_cache``, ``scan_layers`` off), bf16 weights with the
+    cache in bf16 and in e4m3: one slot of a 4352-token full cache
+    prefilled to 4200 tokens in chunks through the kernels, its K/V copied
+    into the ring cache (``_ring_from``: the 13 local layers' rings of 4096
+    slots hold positions 104-4199, long wrapped), then ``RING_STEPS``
+    decode steps on the full cache (greedy) and on the ring through the
+    kernels (teacher-forced), counts zeroed just before the ring's run and
+    read just after: the paged kernel's ``tensor_core`` /
+    ``tensor_core_e4m3`` instance only, no plain version, no prefill. The
+    ring's logits are held to the full cache's and to the ring's through
+    the plain attention at ``MODEL_TOL`` (the e4m3 cache: the larger of
+    that and twice the floor between the plain run and one nudged by
+    2^-20, as in ``model_fp8``). Returns the ring's kernel records and the
+    launches of its runs."""
+    records, launches = {}, {}
+    for fp8 in (False, True):
+        cfg = dataclasses.replace(get_config(GEMMA2), scan_layers=False,
+                                  kv_cache_quant=fp8)
+        rcfg = dataclasses.replace(cfg, window_sized_cache=True)
+        api, rapi = model_api.build(cfg), model_api.build(rcfg)
+        params = api.prepare(api.init(
+            torch.Generator(device=DEV).manual_seed(0)))
+        rng = np.random.default_rng(0)
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                              (1, RING_PROMPT)),
+                                 dtype=torch.int32, device=DEV)
+        full = api.init_cache(1, GEMMA2_LEN, DEV)
+        for start in range(0, RING_PROMPT, 1024):
+            logits, full = api.prefill_chunk(
+                params, full, prompt[:, start:start + 1024],
+                torch.full((1,), start, dtype=torch.int32, device=DEV))
+        first = logits.argmax(-1).to(torch.int32)
+        prefilled = {k: t.clone() for k, t in full.items()}
+
+        def decode(m, cache, tokens_in=None):
+            tok, outs, toks = first, [], []
+            n = torch.full((1,), RING_PROMPT, dtype=torch.int32, device=DEV)
+            for step in range(RING_STEPS):
+                if tokens_in is not None:
+                    tok = tokens_in[step]
+                toks.append(tok)
+                logits, cache = m.decode(params, cache, tok, n)
+                outs.append(logits)
+                tok = logits.argmax(-1).to(torch.int32)
+                n = n + 1
+            return outs, toks, cache
+
+        def ring():
+            r = rapi.init_cache(1, GEMMA2_LEN, DEV)
+            _ring_from(prefilled, r, RING_PROMPT)
+            return r
+
+        want_full, toks, _ = decode(api, full)
+        cache = ring()
+        sizes = sorted({k.shape[1] for k in cache["k"]})
+        check(sizes == [cfg.sliding_window, GEMMA2_LEN],
+              f"model_ring: cache lengths {sizes}")
+        _zero_counts()
+        with _NoPlain() as plain_calls:
+            got, _, cache = decode(rapi, cache, toks)
+        counts = _counts()
+        variant = _e4m3("tensor_core", E4M3 if fp8 else None)
+        launches[f"paged_attention.{variant}"] = \
+            counts["paged_attention"][variant]
+        with _PlainKernels():
+            want_plain, _, _ = decode(rapi, ring(), toks)
+        rel_full, agree = _logit_errors(got, want_full)
+        rel_plain, _ = _logit_errors(got, want_plain)
+        tol, extra = MODEL_TOL[torch.bfloat16], {}
+        if fp8:
+            with _PlainKernels(scale=1 + 2 ** -20):
+                nudged, _, _ = decode(rapi, ring(), toks)
+            floor = _logit_errors(nudged, want_plain)[0]
+            tol = max(tol, FLOOR_FACTOR * floor)
+            extra = dict(plain_floor=f"{floor:.3e}")
+        say("model_ring", arch=GEMMA2, kv_cache="e4m3" if fp8 else "bf16",
+            ring=cfg.sliding_window, full=GEMMA2_LEN,
+            positions=f"{RING_PROMPT}..{RING_PROMPT + RING_STEPS - 1}",
+            logits_rel_l2_vs_full=f"{rel_full:.3e}",
+            logits_rel_l2_vs_plain=f"{rel_plain:.3e}", tol=f"{tol:.3e}",
+            argmax_agreement_vs_full=f"{agree:.3f}", **extra,
+            launches=counts, plain_calls=plain_calls.calls)
+        check(all(torch.isfinite(g).all().item() for g in got),
+              "model_ring: non-finite logits")
+        check(plain_calls.calls == 0, "model_ring: the ring decode called a "
+              "plain attention version on the card")
+        want_n = RING_STEPS * cfg.num_layers
+        check(counts["paged_attention"][variant] == want_n and
+              sum(counts["paged_attention"].values()) == want_n and
+              sum(counts["chunked_prefill"].values()) == 0,
+              f"model_ring: want {want_n} {variant} decode launches and "
+              f"nothing else, got {counts}")
+        check(rel_full <= tol and rel_plain <= tol,
+              f"model_ring: logits differ by {rel_full:.3e} from the full "
+              f"cache's, {rel_plain:.3e} from the plain attention's "
+              f"(relative L2, tolerance {tol:.3e})")
+        r = _ring_record(cache, fp8)
+        records[r["name"]] = r
+        del params, full, prefilled, cache
+        torch.cuda.empty_cache()
+    return records, launches
+
+
+# the paged store phase: qwen2-1.5b's decode shape over a page pool
+STORE_LENGTHS = (300, 420, 96, 512, 280, 333, 64, 450)
+STORE_PAGE = 16
+
+
+def phase_paged_store(card: str):
+    """A ``PagedKVStore`` on the card at qwen2-1.5b's decode shape (28
+    layers, 12 / 2 heads of 128, 16-token pages), in bf16 and e4m3: 8
+    requests of 64-512 tokens written in ragged pieces of 1-96 tokens,
+    round robin, beside a request that leaves half way, so the
+    allocator's free list scatters their pages. The decode op over the
+    allocator's stacked tables (-1 past each request's pages), every
+    layer, counts zeroed just before and read just after: the paged
+    kernel's ``tensor_core`` / ``tensor_core_e4m3`` instance only, no
+    plain version. Each layer's output is held to the plain version on the
+    same pages and to the plain attention over ``gather_dense`` (``TOL``),
+    and ``gather_dense`` to the bytes written. Returns the store's kernel
+    records and the launches of its runs."""
+    cfg = get_config(ARCH)
+    layers, hkv, hq, d = (cfg.num_layers, cfg.num_kv_heads, cfg.num_heads,
+                          cfg.head_dim)
+    dtype = torch.bfloat16
+    records, launches = {}, {}
+    for fp8 in (False, True):
+        store = PagedKVStore.create(layers, 256, STORE_PAGE, hkv, d,
+                                    dtype=E4M3 if fp8 else dtype, device=DEV)
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        rng = np.random.default_rng(0)
+        rids = list(range(len(STORE_LENGTHS)))
+        total = dict(zip(rids, STORE_LENGTHS)) | {99: 200}
+        done, written = dict.fromkeys(total, 0), {r: [] for r in rids}
+        step = 0
+        while any(done[r] < total[r] for r in done):
+            for rid in list(done):
+                if rid == 99 and step == 3:      # it leaves; pages return
+                    store.allocator.release(99)
+                    del done[99]
+                    continue
+                t = min(int(rng.integers(1, 97)), total[rid] - done[rid])
+                if t == 0:
+                    continue
+                k = _rand(gen, (layers, t, hkv, d), dtype)
+                v = _rand(gen, (layers, t, hkv, d), dtype)
+                store.write_tokens(rid, done[rid], k, v)
+                if rid in written:
+                    written[rid].append((k, v))
+                done[rid] += t
+            step += 1
+        pages = [p for r in rids for p in store.allocator.allocated[r]]
+        max_pages = max(STORE_LENGTHS) // STORE_PAGE
+        tables = torch.as_tensor(np.stack([
+            store.allocator.table(r, max_pages) for r in rids]), device=DEV)
+        lengths = torch.tensor(STORE_LENGTHS, dtype=torch.int32, device=DEV)
+        q = _rand(gen, (layers, len(rids), hq, d), dtype)
+        _zero_counts()
+        with _NoPlain() as plain_calls:
+            outs = [ops.paged_attention_op(q[i], store.k_pages[i],
+                                           store.v_pages[i], tables, lengths)
+                    for i in range(layers)]
+        counts = _counts()
+        variant = _e4m3("tensor_core", E4M3 if fp8 else None)
+        launches[f"paged_attention.{variant}"] = \
+            counts["paged_attention"][variant]
+        worst_plain = worst_dense = 0.0
+        tol = TOL[dtype]
+        for i, out in enumerate(outs):
+            want = ref.paged_attention_ref(q[i], store.k_pages[i],
+                                           store.v_pages[i], tables, lengths)
+            worst_plain = max(worst_plain, ((out.float() - want.float()).abs()
+                                            / (tol + tol * want.float().abs())
+                                            ).max().item())
+        for b, rid in enumerate(rids):
+            n = STORE_LENGTHS[b]
+            gk, gv = store.gather_dense(rid, n)
+            wk = torch.cat([k for k, _ in written[rid]], dim=1)
+            wv = torch.cat([v for _, v in written[rid]], dim=1)
+            if fp8:
+                wk, wv = to_e4m3(wk), to_e4m3(wv)
+            check(torch.equal(gk.view(torch.uint8), wk.view(torch.uint8))
+                  and torch.equal(gv.view(torch.uint8), wv.view(torch.uint8)),
+                  f"paged_store: gather_dense of request {rid} differs from "
+                  "what was written")
+            # plain attention over the dense gather, every layer at once:
+            # one query at position n - 1 attends [0, n)
+            starts = torch.full((layers,), n - 1, dtype=torch.int32,
+                                device=DEV)
+            want = ref.chunked_prefill_attention_ref(
+                q[:, b][:, None], gk, gv, starts)[:, 0]
+            got = torch.stack([o[b] for o in outs])
+            worst_dense = max(worst_dense, ((got.float() - want.float()).abs()
+                                            / (tol + tol * want.float().abs())
+                                            ).max().item())
+        say("paged_store", arch=ARCH, kv="e4m3" if fp8 else "bf16",
+            layers=layers, pages_used=store.allocator.used_blocks,
+            pages_in_order=pages == sorted(pages),
+            tables=tuple(tables.shape), holes=int((tables < 0).sum()),
+            worst_share_of_tol_vs_plain=f"{worst_plain:.3f}",
+            worst_share_of_tol_vs_gather_dense=f"{worst_dense:.3f}",
+            launches=counts, plain_calls=plain_calls.calls, card=repr(card))
+        check(pages != sorted(pages), "paged_store: the pages lie in order")
+        check(plain_calls.calls == 0, "paged_store: the decode called a plain "
+              "attention version on the card")
+        check(counts["paged_attention"][variant] == layers and
+              sum(counts["paged_attention"].values()) == layers,
+              f"paged_store: want {layers} {variant} launches, got {counts}")
+        check(worst_plain <= 1.0 and worst_dense <= 1.0,
+              f"paged_store: the kernel is {worst_plain:.2f}x / "
+              f"{worst_dense:.2f}x the tolerance from the plain version / "
+              "the plain attention over gather_dense")
+        name = "paged_attention_store" + ("_e4m3" if fp8 else "")
+        shape = (f"slots=8 PagedKVStore page=16 scattered pages, tables "
+                 f"(8, {max_pages}) with -1 holes, lengths~300 Hq={hq} "
+                 f"Hkv={hkv} D={d} bf16" + (", K/V e4m3" if fp8 else ""))
+        r = _decode_record(name, shape, (
+            q[0], store.k_pages[0], store.v_pages[0], tables, lengths),
+            dict(softcap=None, window=None))
+        records[name] = r
+        del store, outs, written
+        torch.cuda.empty_cache()
+    return records, launches
 
 
 def _leaves(tree):
@@ -1835,6 +2156,9 @@ def main() -> None:
     phase_model_rwkv()
     phase_model("model_gemma2")
     phase_model("model_fp8")
+    ring_records, ring_launches = phase_model_ring(card)
+    store_records, store_launches = phase_paged_store(card)
+    records |= ring_records | store_records
     phase_executor(card)
     phase_executor_rwkv(card)
     phase_graphs(card, ARCH)
@@ -1849,6 +2173,7 @@ def main() -> None:
     tensor_cores = dict.fromkeys(attention, ("tensor_core",))
     tensor_cores_e4m3 = dict.fromkeys(attention, ("tensor_core_e4m3",))
     launches = {
+        "model_ring": ring_launches, "paged_store": store_launches,
         "serve": phase_serve(card, "serve", ARCH, attention, tensor_cores),
         "serve_rwkv": phase_serve(card, "serve_rwkv", RWKV, {"wkv6": wkv6},
                                   {"wkv6": ("chunk", "decode")}),
@@ -1874,6 +2199,11 @@ def main() -> None:
                                             "paged_attention.tensor_core")}
     main |= {f"{name}_e4m3": (f"{phase}_fp8", f"{key}_e4m3")
              for name, (phase, key) in main.items() if "wkv6" not in name}
+    # the ring's and the store's records: their own phases' decode runs
+    for name, phase in (("paged_attention_ring", "model_ring"),
+                        ("paged_attention_store", "paged_store")):
+        main[name] = (phase, "paged_attention.tensor_core")
+        main[f"{name}_e4m3"] = (phase, "paged_attention.tensor_core_e4m3")
     kernels = []
     for name, r in records.items():
         phase, key = main[name]

@@ -39,7 +39,8 @@ for key, lengths, shape in c.DECODE_TIMED:
     if shape not in have:
         c._say_timed(c._time_decode(gen, key, lengths, shape), card)
 """
-SHARED = ("time_ms", "DECODE_TIMED", "_time_decode", "_say_timed")
+SHARED = ("time_ms", "DECODE_TIMED", "_time_decode", "_decode_record",
+          "_say_timed")
 
 
 def timer_source() -> str:

@@ -1,9 +1,11 @@
 """Architecture registry: ``get_config(name)`` / ``get_smoke(name)``.
 
 Each module defines CONFIG (the full-size config) and SMOKE (a reduced
-same-family config for CPU tests), as in the JAX package. The port carries
-the dense configs (gemma2 included) and rwkv6; the other architectures
-come with their slices (ROADMAP.md, queue 1).
+same-family config for CPU tests), as in the JAX package, and the registry
+lists the JAX package's 11 architectures. Every config prices a worker in
+the serve CLI's sim mode; ``models.api.build`` builds the dense ones
+(gemma2 included) and rwkv6, and refuses the moe, vlm, hybrid and encdec
+families until their slices (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -14,8 +16,13 @@ ARCHS = [
     "qwen2_1_5b",
     "deepseek_7b",
     "stablelm_1_6b",
-    "internlm20b",
+    "arctic_480b",
+    "kimi_k2_1t",
     "rwkv6_7b",
+    "paligemma_3b",
+    "zamba2_2_7b",
+    "whisper_medium",
+    "internlm20b",
 ]
 
 _ALIASES = {
@@ -23,17 +30,22 @@ _ALIASES = {
     "qwen2-1.5b": "qwen2_1_5b",
     "deepseek-7b": "deepseek_7b",
     "stablelm-1.6b": "stablelm_1_6b",
-    "internlm-20b": "internlm20b",
+    "arctic-480b": "arctic_480b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t",
+    "kimi-k2-1t": "kimi_k2_1t",
     "rwkv6-7b": "rwkv6_7b",
+    "paligemma-3b": "paligemma_3b",
+    "zamba2-2.7b": "zamba2_2_7b",
+    "whisper-medium": "whisper_medium",
+    "internlm-20b": "internlm20b",
 }
 
 
 def _module(name: str):
     key = _ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
     if key not in ARCHS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported to PyTorch yet; the port "
-            f"has {ARCHS} (see ROADMAP.md for the order of the rest)")
+        raise ValueError(f"unknown architecture {name!r}; the registry "
+                         f"has {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 
@@ -43,3 +55,7 @@ def get_config(name: str):
 
 def get_smoke(name: str):
     return _module(name).SMOKE
+
+
+def list_archs():
+    return list(ARCHS)

@@ -1,9 +1,27 @@
-"""Serving launcher of the PyTorch port: ``--mode real``.
+"""Serving launcher of the PyTorch port.
 
-Drives the ``ClusterScheduler`` (the port's copy of the JAX package's)
-against real PyTorch model execution through ``RealTorchBackend``, with the
-JAX launcher's flags and its JSON (schema v3, ``backend: "real-torch"``).
-Added flags:
+Two modes, as in the JAX launcher (``repro/launch/serve.py``):
+
+* ``--mode real`` (the default here): drives the ``ClusterScheduler`` (the
+  port's copy of the JAX package's) against real PyTorch model execution
+  through ``RealTorchBackend``, on the card unless ``--device cpu`` asks
+  for the CPU. JSON ``backend`` is ``"real-torch"``.
+* ``--mode sim``: the cluster-scale discrete-event run the paper's figures
+  use, the JAX launcher's default mode: the full-size config of any of the
+  11 architectures priced by the copied cost model (``--tp``-way workers,
+  ``perf/hardware.py::V5E``, as in JAX), with ``--backend cost-model``
+  (the trace materialised up front) or ``--backend trace-replay``
+  (arrivals streamed lazily, identical decisions). It touches no device
+  and imports no model code, so ``--device`` does not matter there, and
+  its JSON row equals the JAX launcher's key for key.
+
+The port keeps ``real`` as its default, so that the entry point runs on
+the card unless asked otherwise; the JAX launcher defaults to ``sim``.
+
+Both modes take the JAX launcher's flags, ``--trace-csv`` (a recorded
+Mooncake-schema CSV replayed instead of a synthesised trace) and
+``--slo-classes`` included, and print its JSON (schema v3). Real mode
+adds:
 
 * ``--device`` (default ``cuda``): where the model runs; ``cpu`` runs the
   kernels' plain versions;
@@ -11,7 +29,7 @@ Added flags:
   runs, or the full-width one;
 * ``--max-len``, ``--max-prompt``, ``--max-output``: the cache length and
   the caps on each request's prompt and output (the JAX real mode's fixed
-  128 / 48 / 16).
+  128 / 48 / 16), applied to CSV traces too.
 
 On a CUDA device each worker is priced as one ``perf.cards.H100`` (the
 card's data-sheet peaks, the assumed efficiency fractions) whose
@@ -21,11 +39,11 @@ does not calibrate at start-up, as the JAX one does not:
 ``perf.calibrate.calibrate_hardware(H100)`` measures the fractions. On the
 CPU the workers are plain V5Es (``perf/hardware.py``), as in the JAX real
 mode, so scheduling decisions there equal the JAX package's. Under
-``clock="wall"`` iteration durations are the device's. Sim mode,
-``--trace-csv`` and ``--backend trace-replay`` wait for a later slice
-(ROADMAP.md).
+``clock="wall"`` iteration durations are the device's.
 
-Example:
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode sim \
+      --arch arctic-480b --json
   PYTHONPATH=src python -m repro_torch.launch.serve --mode real \
       --arch rwkv6-7b --size full --rate 1.5 --duration 5 --workers 2 --json
 """
@@ -134,14 +152,22 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--policy", default="tropical",
                     choices=["vllm", "sarathi", "distserve", "tropical",
                              "tropical++"])
-    ap.add_argument("--mode", default="real", choices=["real"],
-                    help="only real mode is ported (sim mode: ROADMAP.md)")
+    ap.add_argument("--mode", default="real", choices=["sim", "real"],
+                    help="real (default here; the JAX launcher defaults to "
+                         "sim): PyTorch execution on --device; sim: the "
+                         "discrete-event cluster run, no device")
+    ap.add_argument("--backend", default="cost-model",
+                    choices=["cost-model", "trace-replay"],
+                    help="sim-mode execution backend: 'cost-model' "
+                         "materialises the trace up front; 'trace-replay' "
+                         "streams arrivals lazily (identical decisions)")
     ap.add_argument("--rate", type=float, default=2.0)
     ap.add_argument("--duration", type=float, default=120.0)
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--tp", type=int, default=8,
-                    help="accepted for flag parity; real mode prices "
-                         "tp=1 workers, as the JAX real mode does")
+                    help="tensor-parallel width of a sim-mode worker; real "
+                         "mode prices tp=1 workers, as the JAX real mode "
+                         "does")
     ap.add_argument("--seed", type=int, default=0,
                     help="trace synthesis + weight init seed")
     ap.add_argument("--scenario", default="mooncake",
@@ -149,7 +175,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "SCENARIOS; 'mooncake' keeps the legacy §V-A trace)")
     ap.add_argument("--slo-classes", default=None, metavar="SPEC",
                     help="multi-tenant SLO tiers: 'name:ttft=S,tpot=S,"
-                         "weight=W,frac=F;...' (or scale=K per §V-A)")
+                         "weight=W,frac=F;...' (or scale=K per §V-A); "
+                         "defines its own mixture workload (mutually "
+                         "exclusive with a non-default --scenario) or "
+                         "maps a --trace-csv slo_class column")
+    ap.add_argument("--trace-csv", default=None, metavar="PATH",
+                    help="replay a recorded Mooncake-schema CSV instead of "
+                         "synthesising (--rate/--duration/--scenario are "
+                         "ignored for arrivals)")
     ap.add_argument("--fail-worker", type=int, default=None,
                     help="inject a worker failure at duration/2")
     ap.add_argument("--ici-bw", type=float, default=None, metavar="GBPS",
@@ -181,24 +214,27 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run under cProfile; print the top-25 "
                          "cumulative-time entries to stderr")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the model (default cuda); on a "
-                         "CUDA device each worker is priced as an H100 with "
-                         "the card's memory, on the CPU as a TPU v5e")
+                    help="real mode: torch device of the model (default "
+                         "cuda); on a CUDA device each worker is priced as "
+                         "an H100 with the card's memory, on the CPU as a "
+                         "TPU v5e")
     ap.add_argument("--size", default="smoke", choices=["smoke", "full"],
-                    help="reduced config (as JAX real mode) or full width")
+                    help="real mode: reduced config (as JAX real mode) or "
+                         "full width")
     ap.add_argument("--max-len", type=int, default=128,
-                    help="KV cache length per slot")
+                    help="real mode: KV cache length per slot")
     ap.add_argument("--max-prompt", type=int, default=48,
-                    help="cap on each request's prompt length")
+                    help="real mode: cap on each request's prompt length")
     ap.add_argument("--max-output", type=int, default=16,
-                    help="cap on each request's output length")
+                    help="real mode: cap on each request's output length")
     return ap
 
 
 def run(argv: Optional[Sequence[str]] = None):
     """Parse, build and run; returns ``(row, backend)`` where ``row`` is
     the metrics object ``main`` prints and ``backend`` the
-    ``RealTorchBackend`` that ran it (its executors and counters)."""
+    ``RealTorchBackend`` that ran it (its executors and counters), None in
+    sim mode."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.ici_bw is not None and args.ici_bw <= 0:
@@ -219,14 +255,15 @@ def run(argv: Optional[Sequence[str]] = None):
         ap.error("need 1 <= --max-prompt, --max-output and --max-prompt + "
                  "--max-output <= --max-len")
 
-    import torch
-
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.perf import H100, V5E, WorkerSpec
-    from repro_torch.serving.executor import ClusterRealExecutors
     from repro_torch.serving.simulator import build_cluster
-    from repro_torch.workload import SCENARIOS, generate_trace, get_scenario
+    from repro_torch.workload import SCENARIOS, generate_trace, \
+        get_scenario, load_csv, replay_csv
 
+    if args.backend == "trace-replay" and args.mode == "real":
+        ap.error("--backend trace-replay streams the simulated clock; "
+                 "--mode real owns its own backend (drop one of the flags)")
     if args.scenario not in SCENARIOS:
         ap.error(f"--scenario must be one of {sorted(SCENARIOS)}")
     classes = None
@@ -235,22 +272,29 @@ def run(argv: Optional[Sequence[str]] = None):
             classes = parse_slo_classes(args.slo_classes)
         except ValueError as e:
             ap.error(f"--slo-classes: {e}")
-        if args.scenario != "mooncake":
+        if args.scenario != "mooncake" and not args.trace_csv:
             ap.error("--slo-classes defines its own workload and cannot "
-                     "be combined with --scenario (drop one of the flags)")
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device here "
-                           "(pass --device cpu to run on the CPU)")
+                     "be combined with --scenario (use --trace-csv to "
+                     "replay recorded traffic under these tiers, or drop "
+                     "one of the flags)")
 
-    cfg = get_config(args.arch) if args.size == "full" \
-        else get_smoke(args.arch)
-    device = torch.device(args.device)
-    hw = V5E if device.type != "cuda" else dataclasses.replace(
-        H100, hbm_bytes=float(torch.cuda.get_device_properties(
-            device).total_memory))
+    if args.mode == "real":
+        import torch
+        if args.device.startswith("cuda") and not torch.cuda.is_available():
+            raise RuntimeError(f"--device {args.device}: no CUDA device here "
+                               "(pass --device cpu to run on the CPU)")
+        cfg = get_config(args.arch) if args.size == "full" \
+            else get_smoke(args.arch)
+        device = torch.device(args.device)
+        hw = V5E if device.type != "cuda" else dataclasses.replace(
+            H100, hbm_bytes=float(torch.cuda.get_device_properties(
+                device).total_memory))
+        spec = WorkerSpec(tp=1, hw=hw)
+    else:
+        cfg = get_config(args.arch)
+        spec = WorkerSpec(tp=args.tp)
     sim, cost = build_cluster(
-        cfg, args.policy, n_workers=args.workers,
-        worker_spec=WorkerSpec(tp=1, hw=hw),
+        cfg, args.policy, n_workers=args.workers, worker_spec=spec,
         use_transfer_engine=not args.no_transfer_engine,
         ici_bw=args.ici_bw * 1e9 if args.ici_bw is not None else None,
         ici_links=args.ici_links, page_size=args.page_size,
@@ -259,25 +303,45 @@ def run(argv: Optional[Sequence[str]] = None):
         role_rebalance=False if args.no_rebalance else "auto",
         host_kv_gb=args.host_kv_gb, prefix_cache=args.prefix_cache,
         vectorized=not args.reference)
+    # one workload-source selection for both feeds, as in the JAX launcher:
+    # each leaf names the (materialised, streaming) pair
+    streaming = args.backend == "trace-replay"
     if classes is not None:
         scenario = _classes_scenario(classes, cost)
-        feed = scenario.generate(args.rate, args.duration, cost,
-                                 seed=args.seed)
+        if args.trace_csv:
+            feed = replay_csv(args.trace_csv, cost,
+                              classes=scenario.classes) if streaming \
+                else load_csv(args.trace_csv, cost, classes=scenario.classes)
+        else:
+            feed = (scenario.replay if streaming else scenario.generate)(
+                args.rate, args.duration, cost, seed=args.seed)
+    elif args.trace_csv:
+        feed = replay_csv(args.trace_csv, cost) if streaming \
+            else load_csv(args.trace_csv, cost)
     elif args.scenario != "mooncake":
-        feed = get_scenario(args.scenario).generate(
+        scenario = get_scenario(args.scenario)
+        feed = (scenario.replay if streaming else scenario.generate)(
             args.rate, args.duration, cost, seed=args.seed)
     else:
-        feed = generate_trace(args.rate, args.duration, cost, seed=args.seed)
+        trace = generate_trace(args.rate, args.duration, cost,
+                               seed=args.seed)
+        feed = ((r.arrival_time, r) for r in trace) if streaming else trace
 
-    for r in feed:   # cap to the cache
-        r.prompt_len = min(r.prompt_len, args.max_prompt)
-        r.output_len = min(r.output_len, args.max_output)
-    execs = ClusterRealExecutors(cfg, args.workers, max_slots=8,
-                                 max_len=args.max_len, device=args.device,
-                                 seed=args.seed)
-    backend = execs.as_backend(clock="wall")
-    sim.sched.backend = backend
-    sim.add_trace(feed)
+    backend = None
+    if streaming:
+        sim.add_replay(feed)
+    else:
+        if args.mode == "real":
+            from repro_torch.serving.executor import ClusterRealExecutors
+            for r in feed:   # cap to the cache
+                r.prompt_len = min(r.prompt_len, args.max_prompt)
+                r.output_len = min(r.output_len, args.max_output)
+            execs = ClusterRealExecutors(cfg, args.workers, max_slots=8,
+                                         max_len=args.max_len,
+                                         device=args.device, seed=args.seed)
+            backend = execs.as_backend(clock="wall")
+            sim.sched.backend = backend
+        sim.add_trace(feed)
     if args.fail_worker is not None:
         sim.inject_failure(args.duration / 2, args.fail_worker,
                            recover_after=args.duration / 4)
@@ -299,12 +363,18 @@ def run(argv: Optional[Sequence[str]] = None):
     else:
         m = sim.run(until=args.duration * 10)
 
+    # label the workload that actually ran, as the JAX launcher does
+    if args.trace_csv:
+        scenario_label = "trace-csv"
+    elif classes is not None:
+        scenario_label = "slo-classes"
+    else:
+        scenario_label = args.scenario
     row = m.row()
     row.update(policy=args.policy, arch=cfg.name, mode=args.mode,
-               backend="real-torch", rate=args.rate, workers=args.workers,
-               seed=args.seed,
-               scenario="slo-classes" if classes is not None
-               else args.scenario,
+               backend=args.backend if args.mode == "sim" else "real-torch",
+               rate=args.rate, workers=args.workers, seed=args.seed,
+               scenario=scenario_label,
                schema_version=METRICS_SCHEMA_VERSION,
                per_class=m.per_class_rows())
     if sim.transfer is not None:

@@ -1,10 +1,12 @@
 """Uniform model API, as in ``repro/models/api.py``, for the families the
-port carries so far: dense transformers (sliding windows, post-norms and
-the fp8 (e4m3) KV cache included, with the uniform cache: gemma2's ring
-cache not yet), and rwkv6.
+port carries so far: dense transformers (sliding windows, post-norms, the
+fp8 (e4m3) KV cache and gemma2's window-sized ring cache included), and
+rwkv6. The other families (moe, vlm, hybrid, encdec) have configs but no
+model yet, and ``build`` refuses them.
 
   init(gen)                                  -> params (on gen.device)
-  init_cache(batch, max_len, device)         -> dense: {"k","v"} (L,B,S,Hkv,D);
+  init_cache(batch, max_len, device)         -> dense: {"k","v"} (L,B,S,Hkv,D),
+                                                per-layer tuples for a ring;
                                                 rwkv: the recurrent state
   prefill(params, cache, tokens, lengths)    -> (last_logits, cache)
   prefill_chunk(params, cache, chunk, starts, take=None) -> (logits, cache)
@@ -47,17 +49,11 @@ def build(cfg: ModelConfig) -> ModelAPI:
             prefill=lambda p, c, t, l: rwkv6.prefill(p, c, t, l, cfg),
             decode=lambda p, c, t, l: rwkv6.decode(p, c, t, l, cfg),
         )
-    # the JAX package's ``transformer._use_ring``: gemma2's window-sized
-    # ring cache, a per-layer cache the port does not carry yet
-    ring = cfg.window_sized_cache and cfg.local_global_alternating \
-        and not cfg.scan_layers
-    if cfg.family != "dense" or ring:
+    if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: the PyTorch port serves dense models (with the "
-            "full-length cache, in the working dtype or fp8) and rwkv6, so "
-            "far; gemma2's ring cache comes with its own slice (model entry "
-            "points and a ring position rule in the decode kernel), the "
-            "other families later (ROADMAP.md)")
+            f"{cfg.name}: the PyTorch port has no {cfg.family!r} model yet; "
+            "it serves dense models and rwkv6 so far, the other families "
+            "come with later slices (ROADMAP.md, queue 1)")
     return ModelAPI(
         cfg=cfg,
         init=lambda gen: transformer.init_lm(gen, cfg),

@@ -224,11 +224,13 @@ class MaskSpec:
       * "lengths" — decode: kpos <= lengths[b] (lengths is (B,))
       * "chunk"   — chunked prefill: query i of the chunk sits at
                     lengths[b] + i and attends to kpos <= that
+      * "ring"    — decode over a window-sized ring cache of Sk slots:
+                    kpos <= lengths[b], or every slot once the ring has
+                    wrapped (lengths[b] + 1 >= Sk)
     ``window``: additionally restrict to kpos > qpos - window ("lengths":
     kpos > lengths[b] - window).
-    The JAX package's "full" kind waits for the whisper slice, and its
-    "ring" kind (gemma2's window-sized cache) for the ring's own slice
-    (see ROADMAP.md).
+    The JAX package's "full" kind waits for the whisper slice (see
+    ROADMAP.md).
     """
     kind: str = "causal"
     window: Optional[int] = None
@@ -261,12 +263,17 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
       and, under a window, ``kpos > lengths - window``), the kernel's
       counts tokens including the new one, hence ``lengths + 1``; its
       window keeps keys from ``lengths + 1 - window`` on, the same set.
+    * "ring" (decode over a ring of Sk slots; the caller writes at
+      ``cache_positions mod Sk``): the same op with kernel lengths
+      ``min(lengths + 1, Sk)`` and no window, which keeps the slots
+      ``kpos <= lengths`` before the ring wraps and every slot after.
 
     ``tables`` holds what every layer of a step shares, built once by the
     caller: ``"rope"`` (``rope_tables`` at ``positions``) and, for a
-    decode, ``"pages"`` (``decode_block_table``); what is missing is built
-    here. An fp8 (e4m3) cache stores K/V through ``to_e4m3`` and the
-    kernels widen it to q's dtype, as the JAX model casts the cache.
+    decode, ``"pages"`` (``decode_block_table`` of this layer's cache
+    length); what is missing is built here. An fp8 (e4m3) cache stores
+    K/V through ``to_e4m3`` and the kernels widen it to q's dtype, as the
+    JAX model casts the cache.
     """
     tables = tables or {}
     q = _project(x, params["wq"])
@@ -286,13 +293,15 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
     _cache_write(k_cache, k, cache_positions)
     _cache_write(v_cache, v, cache_positions)
 
-    if mask.kind == "lengths":
+    if mask.kind in ("lengths", "ring"):
         pages = tables.get("pages")
         if pages is None:
             pages = decode_block_table(*k_cache.shape[:2], x.device)
-        out = _decode_attention(q[:, 0], k_cache, v_cache, pages,
-                                lengths + 1, cfg.attn_softcap,
-                                mask.window)[:, None]
+        n = lengths + 1
+        if mask.kind == "ring":
+            n = n.clamp(max=k_cache.shape[1])
+        out = _decode_attention(q[:, 0], k_cache, v_cache, pages, n,
+                                cfg.attn_softcap, mask.window)[:, None]
     elif mask.kind in ("causal", "chunk"):
         if mask.kind == "causal":
             starts = torch.full((x.shape[0],), mask.q_offset,

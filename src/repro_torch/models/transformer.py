@@ -5,12 +5,16 @@ package's pytree: ``blocks`` holds every layer's weights stacked along a
 leading layer axis, and ``lax.scan`` over layers becomes a Python loop
 over that axis. gemma2's local/global sliding windows (the per-layer
 window of ``layer_windows_py``, in both attention kernels), sandwich
-post-norms and the fp8 (e4m3) KV cache (``kv_cache_quant``) are carried;
-its ring cache, MoE and VLM prefixes wait for later slices (ROADMAP.md).
+post-norms, the fp8 (e4m3) KV cache (``kv_cache_quant``) and gemma2's
+window-sized ring cache (``window_sized_cache``, decode only) are carried;
+MoE and VLM prefixes wait for later slices (ROADMAP.md).
 
 Entry points:
   init_lm(gen, cfg)                               -> params
-  init_cache(cfg, batch, max_len, device)         -> {"k","v"} (L,B,S,Hkv,D)
+  init_cache(cfg, batch, max_len, device)         -> {"k","v"} (L,B,S,Hkv,D),
+                                                     or per-layer tuples of
+                                                     (B,S_l,Hkv,D) under
+                                                     ``uses_ring``
   prefill(params, cache, tokens, lengths, cfg)    -> (last_logits, cache)
   prefill_chunk(params, cache, chunk, starts, cfg, take) -> (logits, cache)
   decode(params, cache, tokens, lengths, cfg)     -> (logits, cache)
@@ -71,12 +75,50 @@ def cache_dtype(cfg: ModelConfig, dtype=None):
     return torch.float8_e4m3fn if cfg.kv_cache_quant else cfg.dtype
 
 
+def uses_ring(cfg: ModelConfig) -> bool:
+    """The JAX package's ``_use_ring``: a per-layer cache whose local
+    layers keep only a window-sized ring."""
+    return cfg.window_sized_cache and cfg.local_global_alternating \
+        and not cfg.scan_layers
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                dtype=None):
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     dtype = cache_dtype(cfg, dtype)
+    if uses_ring(cfg):
+        shapes = [(batch, min(max_len, w), cfg.num_kv_heads, cfg.head_dim)
+                  for w in layer_windows_py(cfg)]
+        return {name: tuple(torch.zeros(s, dtype=dtype, device=device)
+                            for s in shapes) for name in ("k", "v")}
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _sizes(cache) -> list:
+    """Each layer's cache length."""
+    k = cache["k"]
+    if isinstance(k, tuple):
+        return [a.shape[1] for a in k]
+    return [k.shape[2]] * k.shape[0]
+
+
+def ring_layers(cache) -> list:
+    """Which layers of ``cache`` are rings: as in the JAX ``_run_blocks``,
+    a per-layer cache's layers shorter than its longest one (none when
+    ``max_len`` fits the window)."""
+    sizes = _sizes(cache)
+    return [s < max(sizes) for s in sizes]
+
+
+def _refuse_ring(cache, entry: str) -> None:
+    if any(ring_layers(cache)):
+        raise ValueError(
+            f"{entry} over a window-sized ring cache: a ring is decode-only "
+            "(the JAX model fails on it, or attends a short chunk under the "
+            "ring mask, a wrong result; ROADMAP.md, deliberate deviations). "
+            "Decode into the ring from an empty cache, or use a cache of "
+            "max_len <= the window")
 
 
 # ---------------------------------------------------------------------------
@@ -102,10 +144,17 @@ def with_layer_views(params):
 
 
 def _block_fn(bp, x, cfg: ModelConfig, *, positions, mask: MaskSpec, window,
-              kv, cache_positions, lengths=None, tables=None):
-    mask = MaskSpec(kind=mask.kind,
-                    window=None if window >= NO_WINDOW else window,
-                    q_offset=mask.q_offset)
+              kv, cache_positions, lengths=None, tables=None, ring=False):
+    """One block. ``ring``: this layer's cache is a window-sized ring
+    (decode only), written at ``cache_positions mod`` its size and read
+    under the "ring" mask, which the window reduces to there."""
+    if ring:
+        mask = MaskSpec("ring")
+        cache_positions = torch.remainder(cache_positions, kv[0].shape[1])
+    else:
+        mask = MaskSpec(kind=mask.kind,
+                        window=None if window >= NO_WINDOW else window,
+                        q_offset=mask.q_offset)
     h = L.apply_norm(bp["norm_attn"], x, cfg)
     attn_out, new_kv = L.apply_attention(
         bp["attn"], h, cfg, positions=positions, mask=mask, kv_cache=kv,
@@ -122,17 +171,24 @@ def _block_fn(bp, x, cfg: ModelConfig, *, positions, mask: MaskSpec, window,
 
 def _run_blocks(params, x, cfg: ModelConfig, *, positions, mask, cache,
                 cache_positions, lengths=None):
-    """Every layer over ``x``, with the tables they share built once."""
+    """Every layer over ``x``, with the tables they share built once: the
+    rope tables, and for a decode one block table per distinct cache
+    length (a ring's and the full one)."""
     layers = with_layer_views(params)["layers"]
-    tables = {"rope": L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)}
-    if mask.kind == "lengths":
-        tables["pages"] = L.decode_block_table(*cache["k"].shape[1:3],
-                                               x.device)
+    rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    sizes, rings = _sizes(cache), ring_layers(cache)
+    tables = {}
+    for size in set(sizes):
+        tables[size] = {"rope": rot}
+        if mask.kind == "lengths":
+            tables[size]["pages"] = L.decode_block_table(x.shape[0], size,
+                                                         x.device)
     for i, window in enumerate(layer_windows_py(cfg)):
         x, _ = _block_fn(
             layers[i], x, cfg, positions=positions, mask=mask, window=window,
             kv=(cache["k"][i], cache["v"][i]),
-            cache_positions=cache_positions, lengths=lengths, tables=tables)
+            cache_positions=cache_positions, lengths=lengths,
+            tables=tables[sizes[i]], ring=rings[i])
     return x, cache
 
 
@@ -150,7 +206,9 @@ def _last_logits(params, x, idx, cfg: ModelConfig):
 
 def prefill(params, cache, tokens, lengths, cfg: ModelConfig):
     """Full-prompt prefill. tokens (B, S) padded; KV written at [0, S).
-    Returns (last_token_logits (B, V), cache)."""
+    Returns (last_token_logits (B, V), cache). A cache with ring layers
+    raises (a ring is decode-only)."""
+    _refuse_ring(cache, "prefill")
     x = L.embed(params["embed"], tokens, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -166,7 +224,9 @@ def prefill_chunk(params, cache, chunk, starts, cfg: ModelConfig,
                   take: Optional[torch.Tensor] = None):
     """Chunked prefill: chunk (B, Sc) continues requests whose first
     ``starts[b]`` tokens are already in the cache. ``take`` (B,) selects the
-    per-request last real token (chunks may be bucket-padded); default Sc."""
+    per-request last real token (chunks may be bucket-padded); default Sc.
+    A cache with ring layers raises (a ring is decode-only)."""
+    _refuse_ring(cache, "prefill_chunk")
     x = L.embed(params["embed"], chunk, cfg)
     b, sc, _ = x.shape
     positions = starts.long()[:, None] + torch.arange(sc, device=x.device)[None]
@@ -182,7 +242,8 @@ def prefill_chunk(params, cache, chunk, starts, cfg: ModelConfig,
 
 def decode(params, cache, tokens, lengths, cfg: ModelConfig):
     """One decode step. tokens (B,) — the freshly sampled token, written at
-    position lengths[b]. Returns (logits (B, V), cache)."""
+    position lengths[b] (a ring layer's at lengths[b] mod its size).
+    Returns (logits (B, V), cache)."""
     x = L.embed(params["embed"], tokens[:, None], cfg)
     positions = lengths.long()[:, None]
     x, cache = _run_blocks(params, x, cfg, positions=positions,

@@ -58,6 +58,7 @@ import torch
 
 from repro_torch.kernels.ops import LaunchTally
 from repro_torch.models import api as model_api
+from repro_torch.models.transformer import uses_ring
 from repro_torch.sched.backend import SlotExhausted
 from repro_torch.serving.engine import IterationPlan, Worker
 
@@ -91,6 +92,20 @@ def resolve_device(device=None) -> torch.device:
                 "device='cpu' to run its plain versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def refuse_ring(cfg) -> None:
+    """The executors keep a slotted (L, slots, max_len, Hkv, D) cache and
+    move slot rows of it; gemma2's per-layer ring cache has no slot rows
+    of one shape. The JAX executor fails on it too (its cache view slices
+    the sequence axis of the per-layer leaves: ``vmap got inconsistent
+    sizes``), so it is refused here, not served another way."""
+    if uses_ring(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the executor does not serve the window-sized ring "
+            "cache (window_sized_cache without scan_layers), as the JAX "
+            "executor cannot; serve the full-length cache, or decode a ring "
+            "through models.transformer (ROADMAP.md)")
 
 
 def _upload(arrays: list[np.ndarray], device) -> torch.Tensor:
@@ -323,6 +338,7 @@ class RealExecutor:
                  max_len: int = 256, params=None, batched: bool = True,
                  wid: int = 0, kernels: Optional[ExecutorKernels] = None,
                  owner=None, device=None):
+        refuse_ring(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.api = model_api.build(cfg)
@@ -562,6 +578,7 @@ class ClusterRealExecutors:
                  max_len: int = 256, batched: bool = True,
                  warmup: bool = True, device=None, params=None,
                  seed: int = 0):
+        refuse_ring(cfg)
         device = resolve_device(device)
         api = model_api.build(cfg)
         if params is None:

@@ -292,14 +292,19 @@ def test_fp8_executor_token_streams_equal_jax(batched):
 
 
 def test_api_builds_fp8_and_refuses_the_ring():
+    """The API builds the fp8 cache, and the fp8 ring (e4m3 rings beside
+    e4m3 full-length layers); the executor refuses the ring."""
     for arch in ("qwen2-1.5b", "gemma2-2b"):
         api = tapi.build(_fp8_cfg(get_config, arch))
         cache = api.init_cache(1, 16, "cpu")
         assert cache["k"].dtype == cache["v"].dtype == E4M3
-    ring = dataclasses.replace(_fp8_cfg(get_config, "gemma2-2b"),
+    ring = dataclasses.replace(_fp8_cfg(get_smoke, "gemma2-2b"),
                                window_sized_cache=True, scan_layers=False)
+    cache = tapi.build(ring).init_cache(1, 16, "cpu")
+    assert [(k.shape[1], k.dtype) for k in cache["k"]] == \
+        [(8, E4M3), (16, E4M3)] * 2
     with pytest.raises(NotImplementedError, match="ring cache"):
-        tapi.build(ring)
+        ClusterRealExecutors(ring, 1, max_len=16, warmup=False, device="cpu")
 
 
 def test_kernel_checks_take_e4m3_kv_beside_bf16_or_f32_q():

@@ -204,17 +204,24 @@ def test_decisions_equal_jax_simulator(policy):
 
 
 def test_cache_variants_raise_naming_the_roadmap():
-    """The ring cache (``window_sized_cache`` without ``scan_layers``, the
-    JAX ``transformer._use_ring``) still raises, with or without the fp8
-    cache; with ``scan_layers`` the JAX model keeps the uniform cache, and
-    so does the port, in the working dtype or fp8 (served since the fp8
-    slice)."""
+    """Every cache variant builds: with ``scan_layers`` the uniform cache
+    (as the JAX model keeps it), in the working dtype or fp8, and without
+    it gemma2's ring cache (the JAX ``transformer._use_ring``), with or
+    without fp8, whose local layers keep window-sized rings. The executor
+    refuses the ring, naming ROADMAP.md (the JAX executor fails on it)."""
     full = get_config(ARCH)
     tapi.build(dataclasses.replace(full, window_sized_cache=True))
     tapi.build(dataclasses.replace(full, kv_cache_quant=True))
-    for bad in (dict(window_sized_cache=True, scan_layers=False),
-                dict(window_sized_cache=True, scan_layers=False,
-                     kv_cache_quant=True)):
+    smoke = get_smoke(ARCH)
+    for ring in (dict(window_sized_cache=True, scan_layers=False),
+                 dict(window_sized_cache=True, scan_layers=False,
+                      kv_cache_quant=True)):
+        tapi.build(dataclasses.replace(full, **ring))
+        cfg = dataclasses.replace(smoke, **ring)
+        cache = tapi.build(cfg).init_cache(2, 24, "cpu")
+        assert [k.shape for k in cache["v"]] == \
+            [(2, 8, 2, 16), (2, 24, 2, 16)] * 2
         with pytest.raises(NotImplementedError,
                            match=r"ring cache.*ROADMAP\.md"):
-            tapi.build(dataclasses.replace(full, **bad))
+            ClusterRealExecutors(cfg, 1, max_len=24, warmup=False,
+                                 device="cpu")
