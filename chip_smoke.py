@@ -19,7 +19,10 @@ Phases (one line each, a non-zero exit on any failure):
             (gemma2's D = 256, G = 2, window 4096 at length 4300; len -
             window on a page boundary and window >= len; 16-token pages
             with shuffled tables; the tensor cores at D = 128) and
-            gemma2's prefill shape
+            gemma2's prefill shape; the MoE and VLM heads: decode at
+            arctic's G = 7 and kimi's G = 8 (D = 128) and paligemma's G = 8
+            at D = 256 over one KV head, prefill at arctic's G = 7 and at
+            paligemma's 1088-token prefix from 0
             (attention: bf16 rtol = atol = 2e-2, f32 1e-4, sums run in
             another order; wkv6 against the sequential scan, bf16 and f32
             inputs alike: out rtol = atol = 3e-4, state rtol 3e-4 atol 3e-3,
@@ -34,7 +37,8 @@ Phases (one line each, a non-zero exit on any failure):
             and, for attention, torch's scaled_dot_product_attention on the
             same work (``time_ms``: the card sleeps before each timed call,
             so no host time is timed), the timed attention shapes again
-            with e4m3 K/V (SDPA over bf16 copies, the widening timed apart)
+            with e4m3 K/V (SDPA over bf16 copies, the widening timed apart),
+            and arctic's and paligemma's decode and paligemma's prefill
   model     full-width qwen2-1.5b (random weights from a seed): prefill_chunk
             then decode steps through the kernels and through the plain
             attention, logits compared (stated tolerance below)
@@ -44,6 +48,16 @@ Phases (one line each, a non-zero exit on any failure):
             real keys (tensor-core variants of both attention kernels
             in bf16, CUDA-core ones in f32)
   model_fp8  the same for full-width qwen2-1.5b with its cache in e4m3
+  model_moe  full-width arctic-480b (2 of its 35 layers) and kimi-k2-1t (1
+            of 61), bf16: chunked prefill then decode through the kernels,
+            every attention call shadowed by its plain version, and through
+            the plain attention; the (token, layer) routes whose experts
+            differ between the runs reported, the logits held on the
+            outputs whose token kept its routes
+  model_vlm  full-width paligemma-3b: 1024 random patch features and 64
+            text tokens prefilled in one call (lengths 1088), then 8 decode
+            steps, through the kernels (tensor-core variants only) and the
+            plain attention, logits compared
   model_ring  full-width gemma2-2b with the window-sized ring cache, bf16
             and e4m3: one slot prefilled to 4200 tokens on a full cache,
             copied into the ring cache (the local layers' 4096-slot rings
@@ -84,7 +98,9 @@ Phases (one line each, a non-zero exit on any failure):
             (kernels matched by the names the wrappers export; attention
             and wkv6 must show device time); profile_gemma2 the same for
             full-width gemma2-2b, profile_fp8 for qwen2-1.5b with the fp8
-            (e4m3) cache
+            (e4m3) cache, profile_moe for arctic-480b's 2 layers with the
+            expert matrix products' share of the device time against the
+            bound of the experts the routes need
   calibrate perf.calibrate on the card: calibrate_hardware(H100) at serving
             shapes with and without the GEMM pass and
             calibrate_interference over decode batches (1, 4, 8) x chunks
@@ -101,12 +117,15 @@ Phases (one line each, a non-zero exit on any failure):
   serve_fp8, serve_gemma2_fp8  the same on qwen2-1.5b and gemma2-2b with
             the fp8 (e4m3) cache, the config varied as the JAX
             launch/hillclimb.py varies it (the CLI has no flag for it)
-Each serve phase zeroes the kernels' launch counts just before it and reads
+  serve_moe  the same on arctic-480b at full width, 2 of its 35 layers
+            (varied as the fp8 phases vary the cache), the MoE main path
+  serve_vlm  the same on paligemma-3b, text only (the VLM main path)
+Each phase prints its seconds. Each serve phase zeroes the kernels' launch counts just before it and reads
 them just after, per device kernel variant too (a CUDA graph replay adds
 what its capture counted): the dense paths must launch the tensor-core
 prefill and decode kernels, the gemma2 paths too (head_dim 256), the fp8
 paths their e4m3 instances and no other; the rwkv path both wkv6 kernels.
-The dense paths' steps are CUDA graph replays.
+The transformer paths' steps (dense, MoE, VLM) are CUDA graph replays.
 
 The last lines are the kernels' JSON record, the run's seconds, the
 nvidia-smi line and {"ok": true, "device": {...}}. Without a CUDA device,
@@ -117,6 +136,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import math
@@ -145,6 +165,7 @@ from repro_torch.kernels import (build, chunked_prefill, ops,  # noqa: E402
                                  paged_attention, ref, wkv6)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import decode_page_size, to_e4m3  # noqa: E402
 from repro_torch.perf import H100, CostModel, WorkerSpec  # noqa: E402
 from repro_torch.perf.calibrate import (calibrate_hardware,  # noqa: E402
@@ -185,6 +206,18 @@ MAX_LEN = 1024
 # the local layers' 4096-token window
 GEMMA2_LEN = 4352
 GEMMA2_HEADS = dict(hq=8, hkv=4, d=256, softcap=50.0, window=4096)
+# the MoE and VLM paths (full width; arctic and kimi cut in depth, below)
+ARCTIC = "arctic-480b"
+KIMI = "kimi-k2-1t"
+PALIGEMMA = "paligemma-3b"
+ARCTIC_HEADS = dict(hq=56, hkv=8, d=128)                 # G = 7
+KIMI_HEADS = dict(hq=64, hkv=8, d=128)                   # G = 8
+PALIGEMMA_HEADS = dict(hq=8, hkv=1, d=256)               # G = 8, MQA
+# paligemma's prefill: 1024 patches and 64 text tokens from position 0,
+# in a cache of 18 pages of 64 (room for the decode steps after it)
+VLM_TEXT = 64
+VLM_SEQ = 1024 + VLM_TEXT
+VLM_LEN = 1152
 LIBS = (paged_attention.LIB, chunked_prefill.LIB, wkv6.LIB)
 
 
@@ -560,6 +593,12 @@ PREFILL_SPLITS = {
     (8, 256, 8, 4, 256, 1024, 4096): 1,
     (1, 1024, 8, 4, 256, 4352, 4096): 2,
     (1, 1024, 8, 4, 256, 4352, None): 2,
+    # paligemma (G = 8, Hkv = 1): model_vlm's 1088-token prefill of 2 rows
+    # (272 blocks: no split), and the serve path's rows of 256 (1 row: 32
+    # blocks, 4 splits; 8 rows: 256 blocks, none)
+    (2, 1088, 8, 1, 256, 1152, None): 1,
+    (1, 256, 8, 1, 256, 1024, None): 4,
+    (8, 256, 8, 1, 256, 1024, None): 1,
     # D = 128 never splits
     (2, 256, 12, 2, 128, 1024, None): 1,
 }
@@ -685,6 +724,14 @@ def phase_kernels(card: str) -> dict:
             "d256_g2_rows8_sq256_softcap50": pc(
                 gen, 8, 256, MAX_LEN, dtype, softcap=50.0, hq=8, hkv=4,
                 d=256),
+            # arctic's heads (G = 7: 9 queries, 63 rows a block) and
+            # paligemma's 1088-token prefix + text prefill from 0 (G = 8 at
+            # D = 256 over one KV head)
+            "arctic_g7_sq256": pc(gen, 2, 256, MAX_LEN, dtype,
+                                  **ARCTIC_HEADS),
+            "paligemma_prefix_g8_d256_hkv1": pc(
+                gen, 2, VLM_SEQ, VLM_LEN, dtype, starts=[0, 0],
+                **PALIGEMMA_HEADS),
         }
         if kv is not None and dtype == torch.bfloat16:
             cases |= _e4m3_prefill_edges(gen)
@@ -736,6 +783,14 @@ def phase_kernels(card: str) -> dict:
             "g8_d128_window64": dc(
                 gen, 4, MAX_LEN, dtype, lengths=[63, 64, 65, 1000], hq=16,
                 hkv=2, window=64),
+            # the MoE and VLM heads at 8 slots: arctic's odd G = 7 (padded
+            # to 8 columns), kimi's G = 8 at D = 128, paligemma's G = 8 at
+            # D = 256 over one KV head (the kernel's largest group there;
+            # 8 clusters, so S = 16)
+            "arctic_g7_d128": dc(gen, 8, MAX_LEN, dtype, **ARCTIC_HEADS),
+            "kimi_g8_d128": dc(gen, 8, MAX_LEN, dtype, **KIMI_HEADS),
+            "paligemma_g8_d256_hkv1": dc(gen, 8, MAX_LEN, dtype,
+                                         **PALIGEMMA_HEADS),
         }
         if kv is not None and dtype == torch.bfloat16:
             cases |= _e4m3_decode_edges(gen)
@@ -789,25 +844,9 @@ def phase_kernels(card: str) -> dict:
             PREFILL_TIMED, (None, E4M3)):
         pargs, pkw = _prefill_case(gen, 2, 256, smax, dtype, starts=starts,
                                    kv=kv, **heads)
-        byts, flops = _prefill_work(pargs, pkw["window"])
         name = key if kv is None else f"{key}_e4m3"
-        q, kc = pargs[0], pargs[1]
-        records[name] = dict(
-            name=name, route="cuda",
-            variant=_e4m3(_attention_variant(dtype, q.shape[-1]), kv),
-            splits=chunked_prefill.splits(
-                q.shape[0], q.shape[1], q.shape[2], kc.shape[2], q.shape[3],
-                kc.shape[1], pkw["window"], dtype),
-            source="src/repro_torch/kernels/csrc/chunked_prefill.cu",
-            replaces="src/repro/kernels/chunked_prefill.py:103",
-            shape=shape if kv is None else f"{shape}, K/V e4m3",
-            max_abs_err=_compare(f"prefill/timed_{name}", pre_k, pre_p,
-                                 pargs, pkw, dtype),
-            ms=time_ms(lambda: pre_k(*pargs, **pkw)),
-            plain_ms=time_ms(lambda: pre_p(*pargs, **pkw)),
-            library_ms=time_ms(_sdpa_prefill(pargs, pkw)),
-            **_widen_ms(pargs), **_sdpa_note(pkw),
-            **_bound(byts, flops, dtype))
+        records[name] = _prefill_record(
+            name, shape if kv is None else f"{shape}, K/V e4m3", pargs, pkw)
     for kv in (None, E4M3):
         for key, lengths, shape in DECODE_TIMED:
             r = _time_decode(gen, key, lengths, shape, kv=kv)
@@ -816,6 +855,18 @@ def phase_kernels(card: str) -> dict:
             r = _time_decode(gen, key, lengths, shape, s=s, kv=kv,
                              **GEMMA2_HEADS)
             records[r["name"]] = r
+    # the MoE and VLM paths' shapes, K/V in bf16 as their serve paths keep
+    # them: arctic's and paligemma's decode steps of 8 slots, paligemma's
+    # 1088-token prefill (model_vlm's)
+    for key, lengths, shape, heads in MOE_VLM_DECODE_TIMED:
+        r = _time_decode(gen, key, lengths, shape, **heads)
+        records[r["name"]] = r
+    pargs, pkw = _prefill_case(gen, 2, VLM_SEQ, VLM_LEN, dtype,
+                               starts=[0, 0], **PALIGEMMA_HEADS)
+    records["chunked_prefill_paligemma"] = _prefill_record(
+        "chunked_prefill_paligemma",
+        f"rows=2 Sq={VLM_SEQ} Smax={VLM_LEN} starts=[0,0] Hq=8 Hkv=1 D=256 "
+        "bf16", pargs, pkw)
     # wkv6: a decode step of 8 slots (its own device kernel), a prefill replay
     for key, variant, args, mode in (
             ("wkv6_decode", "decode", _wkv_case(gen, 8, 1, dtype,
@@ -871,6 +922,43 @@ DECODE_TIMED = (
     ("paged_attention_1slot", (1000,),
      "slots=1 max_len=1024 page=64 length=1000 Hq=12 Hkv=2 D=128 bf16"),
 )
+
+
+# the MoE and VLM paths' decode shapes (bf16, 64-token pages of a
+# 1024-token cache, the serve phases' 8 slots at lengths as above)
+MOE_VLM_DECODE_TIMED = (
+    ("paged_attention_arctic", (300, 420, 96, 512, 280, 333, 64, 450),
+     "slots=8 max_len=1024 page=64 lengths~300 Hq=56 Hkv=8 D=128 bf16",
+     ARCTIC_HEADS),
+    ("paged_attention_paligemma", (300, 420, 96, 512, 280, 333, 64, 450),
+     "slots=8 max_len=1024 page=64 lengths~300 Hq=8 Hkv=1 D=256 bf16",
+     PALIGEMMA_HEADS),
+)
+
+
+def _prefill_record(name, shape, args, kw) -> dict:
+    """The prefill kernel's record on given inputs: checked against the
+    plain version, then timed beside it, its bound and SDPA."""
+    q, kc = args[0], args[1]
+    dtype = q.dtype
+    byts, flops = _prefill_work(args, kw["window"])
+    kernel, plain = (chunked_prefill.chunked_prefill_attention,
+                     ref.chunked_prefill_attention_ref)
+    kv = None if kc.dtype == dtype else kc.dtype
+    return dict(
+        name=name, route="cuda",
+        variant=_e4m3(_attention_variant(dtype, q.shape[-1]), kv),
+        splits=chunked_prefill.splits(
+            q.shape[0], q.shape[1], q.shape[2], kc.shape[2], q.shape[3],
+            kc.shape[1], kw["window"], dtype),
+        source="src/repro_torch/kernels/csrc/chunked_prefill.cu",
+        replaces="src/repro/kernels/chunked_prefill.py:103", shape=shape,
+        max_abs_err=_compare(f"prefill/timed_{name}", kernel, plain, args,
+                             kw, dtype),
+        ms=time_ms(lambda: kernel(*args, **kw)),
+        plain_ms=time_ms(lambda: plain(*args, **kw)),
+        library_ms=time_ms(_sdpa_prefill(args, kw)),
+        **_widen_ms(args), **_sdpa_note(kw), **_bound(byts, flops, dtype))
 
 
 def _time_decode(gen, key, lengths, shape, s=MAX_LEN, kv=None,
@@ -1212,6 +1300,216 @@ def phase_model_rwkv() -> None:
               f"{s_tol:.3e})")
         del params, s_got, s_want, s_scan
         torch.cuda.empty_cache()
+
+
+def _release() -> None:
+    """Free what a phase left (its weights): a collection for reference
+    cycles, then the allocator's cache, so the next model's weights do not
+    meet this one's."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# The MoE models at full width, cut in depth to fit one card: arctic-480b
+# keeps 2 of its 35 layers (13.61 B parameters a layer, 27.2 GB in bf16; two
+# and the tied embedding 54.9 GB), kimi-k2-1t 1 of its 61 (36.5 GB with its
+# 163840 x 7168 embedding; two layers would be 70.7 GB)
+MOE_CUTS = {ARCTIC: {"num_layers": 2}, KIMI: {"num_layers": 1}}
+MOE_ROWS, MOE_PROMPT, MOE_CHUNK, MOE_STEPS = 2, 256, 128, 4
+
+
+class _Routes:
+    """Inside this block every ``models.moe.route`` call keeps the expert
+    ids it picked (on the card, read after the run)."""
+
+    def __enter__(self):
+        self.saved, self.ids = moe.route, []
+
+        def recorded(*args):
+            gates, ids = self.saved(*args)
+            self.ids.append(ids)
+            return gates, ids
+
+        moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self.saved
+
+
+def _route_flips(got: list, want: list, rows: int, widths: list,
+                 layers: int):
+    """Two runs' routes, one (rows * width, k) id tensor per (forward,
+    layer): the (token, layer) routes whose expert sets differ, and for
+    each forward a (rows,) mask of the rows whose read token (the last of
+    the forward) kept its route in every layer."""
+    check(len(got) == len(want) == len(widths) * layers,
+          f"route calls {len(got)} / {len(want)}, want "
+          f"{len(widths) * layers}")
+    flips, keep = 0, []
+    for f, width in enumerate(widths):
+        ok = torch.ones(rows, dtype=torch.bool, device=DEV)
+        for layer in range(layers):
+            a, b = (r[f * layers + layer].view(rows, width, -1).sort(-1)[0]
+                    for r in (got, want))
+            differ = (a != b).any(-1)                   # (rows, width)
+            flips += int(differ.sum())
+            ok &= ~differ[:, -1]
+        keep.append(ok)
+    return flips, keep
+
+
+def _held_logit_error(got, want, keep) -> tuple:
+    """The largest relative L2 error of the logits over the rows ``keep``
+    holds (forwards with none held are skipped), and the rows held."""
+    rel, held = 0.0, 0
+    for g, w, k in zip(got, want, keep):
+        if k.any():
+            rel = max(rel, ((g[k] - w[k]).norm() / w[k].norm()).item())
+            held += int(k.sum())
+    return rel, held
+
+
+def _model_moe(arch: str) -> None:
+    cfg = dataclasses.replace(get_config(arch), **MOE_CUTS[arch])  # bf16
+    api = model_api.build(cfg)
+    params = api.init(torch.Generator(device=DEV).manual_seed(0))
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MOE_ROWS, MOE_PROMPT)), dtype=torch.int32,
+        device=DEV)
+    widths = [MOE_CHUNK] * (MOE_PROMPT // MOE_CHUNK) + [1] * MOE_STEPS
+
+    def run(tokens_in=None):
+        cache = api.init_cache(MOE_ROWS, MAX_LEN, DEV)
+        outs, toks = [], []
+        for start in range(0, MOE_PROMPT, MOE_CHUNK):
+            starts = torch.full((MOE_ROWS,), start, dtype=torch.int32,
+                                device=DEV)
+            logits, cache = api.prefill_chunk(
+                params, cache, prompt[:, start:start + MOE_CHUNK], starts)
+            outs.append(logits)
+        lengths = torch.full((MOE_ROWS,), MOE_PROMPT, dtype=torch.int32,
+                             device=DEV)
+        for step in range(MOE_STEPS):
+            tok = logits.argmax(-1).to(torch.int32) if tokens_in is None \
+                else tokens_in[step]
+            toks.append(tok)
+            logits, cache = api.decode(params, cache, tok, lengths)
+            outs.append(logits)
+            lengths = lengths + 1
+        return outs, toks
+
+    result = []
+    t0 = time.perf_counter()
+    with _Routes() as routes, _ShadowAttention(torch.bfloat16) as shadow:
+        _expect_variant("tensor_core", lambda: result.extend(run()),
+                        chunked_prefill, paged_attention)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    got, toks = result
+    with _Routes() as plain_routes, _PlainKernels():
+        want, _ = run(toks)                      # teacher-forced
+    flips, keep = _route_flips(routes.ids, plain_routes.ids, MOE_ROWS,
+                               widths, cfg.num_layers)
+    rel, held = _held_logit_error(got, want, keep)
+    total = MOE_ROWS * sum(widths) * cfg.num_layers
+    finite = all(torch.isfinite(g).all().item() for g in got)
+    say("model_moe", arch=arch, layers=cfg.num_layers, dtype="bfloat16",
+        params_b=f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f}",
+        experts=f"{cfg.num_experts} top-{cfg.top_k}",
+        routes=total, routes_differing=flips,
+        outputs_held=f"{held}/{MOE_ROWS * len(widths)}",
+        logits_rel_l2_held=f"{rel:.3e}", tol=MODEL_TOL[torch.bfloat16],
+        attention_calls=shadow.calls,
+        worst_call_share_of_kernel_tol=f"{shadow.worst:.3f}",
+        kernel_run_s=f"{kernel_s:.2f}")
+    check(finite, f"model_moe: {arch}: non-finite logits")
+    check(shadow.worst <= 1.0, f"model_moe: {arch}: an attention call is "
+          f"{shadow.worst:.2f}x the kernel tolerance from the plain version "
+          "on its inputs")
+    check(held > 0, f"model_moe: {arch}: every output's route flipped")
+    check(rel <= MODEL_TOL[torch.bfloat16], f"model_moe: {arch}: logits of "
+          f"rows whose routes agree differ by {rel:.3e} (relative L2)")
+
+
+def phase_model_moe() -> None:
+    """Full-width arctic-480b (2 layers) and kimi-k2-1t (1 layer), bf16
+    only (f32 would take 110 / 73 GB; the CPU tests hold f32): 2 rows'
+    256-token prompts prefilled in chunks of 128, then 4 decode steps,
+    through the kernels (tensor-core variants only, every call shadowed by
+    the plain version on its live inputs) and, teacher-forced, through the
+    plain attention. A last-bit attention difference can flip a token's
+    top-k where two router logits nearly tie, which moves that token far
+    more than ``MODEL_TOL``: each layer's expert ids are kept in both runs,
+    the (token, layer) routes that differ are reported, and the logits are
+    held to ``MODEL_TOL`` on the outputs whose read token kept its route in
+    every layer."""
+    for arch in MOE_CUTS:
+        _model_moe(arch)
+        _release()
+
+
+def phase_model_vlm() -> dict:
+    """Full-width paligemma-3b (18 layers, bf16): two rows of 1024 random
+    patch features (dim 1152, from a seed) and 64 text tokens prefilled in
+    one call with lengths = 1088 (the prefix counts), then 8 decode steps,
+    through the kernels (tensor-core variants only, every call shadowed)
+    and, teacher-forced, through the plain attention; the logits compared.
+    Returns the kernel run's launches per variant (counts zeroed just
+    before it)."""
+    cfg = get_config(PALIGEMMA)
+    api = model_api.build(cfg)
+    params = api.init(torch.Generator(device=DEV).manual_seed(0))
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    inputs = {
+        "prefix_embeds": torch.randn(
+            (2, cfg.num_patches, cfg.vision_feature_dim), generator=gen,
+            device=DEV).to(cfg.dtype),
+        "tokens": torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, VLM_TEXT)), dtype=torch.int32,
+            device=DEV)}
+    n = torch.full((2,), cfg.num_patches + VLM_TEXT, dtype=torch.int32,
+                   device=DEV)
+
+    def run(tokens_in=None):
+        cache = api.init_cache(2, VLM_LEN, DEV)
+        logits, cache = api.prefill(params, cache, inputs, n)
+        outs, toks, lengths = [logits], [], n
+        for step in range(8):
+            tok = logits.argmax(-1).to(torch.int32) if tokens_in is None \
+                else tokens_in[step]
+            toks.append(tok)
+            logits, cache = api.decode(params, cache, tok, lengths)
+            outs.append(logits)
+            lengths = lengths + 1
+        return outs, toks
+
+    result = []
+    _zero_counts()
+    with _ShadowAttention(torch.bfloat16) as shadow:
+        _expect_variant("tensor_core", lambda: result.extend(run()),
+                        chunked_prefill, paged_attention)
+    launches = _counts()
+    got, toks = result
+    with _PlainKernels():
+        want, _ = run(toks)
+    rel, agree = _logit_errors(got, want)
+    finite = all(torch.isfinite(g).all().item()
+                 and tuple(g.shape) == (2, cfg.vocab_size) for g in got)
+    say("model_vlm", arch=PALIGEMMA, dtype="bfloat16",
+        params_b=f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f}",
+        prefix=f"{cfg.num_patches}x{cfg.vision_feature_dim}", text=VLM_TEXT,
+        lengths=int(n[0]), logits_rel_l2=f"{rel:.3e}",
+        tol=MODEL_TOL[torch.bfloat16], argmax_agreement=f"{agree:.3f}",
+        attention_calls=shadow.calls,
+        worst_call_share_of_kernel_tol=f"{shadow.worst:.3f}",
+        launches=launches)
+    check(finite, "model_vlm: non-finite logits or a wrong shape")
+    check(shadow.worst <= 1.0, f"model_vlm: an attention call is "
+          f"{shadow.worst:.2f}x the kernel tolerance from the plain version")
+    check(rel <= MODEL_TOL[torch.bfloat16],
+          f"model_vlm: logits differ by {rel:.3e} (relative L2)")
+    return {f"{m}.{v}": c for m, by in launches.items() for v, c in by.items()}
 
 
 # gemma2's ring phase: decode steps past the 4200-token prompt, the local
@@ -1617,7 +1915,7 @@ def phase_executor_rwkv(card: str) -> None:
         if ex is None:
             execs.migrate(b, 0, 1)
         elif label in (mixed, "decode a b"):
-            wall, kernels = _profiled(lambda: ex.run_plan(plan))
+            wall, kernels, _ = _profiled(lambda: ex.run_plan(plan))
             dev = _device_ms(kernels)
             wkv_ms = _device_ms(kernels, _named(wkv6))
             gemm = _device_ms(kernels, _is_gemm)
@@ -1664,20 +1962,22 @@ def phase_executor_rwkv(card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _profiled(fn):
+def _profiled(fn, shapes: bool = False):
     """Run ``fn`` under torch.profiler: (wall ms, the device kernels'
-    averaged events, largest device time first)."""
+    averaged events, largest device time first, and with ``shapes`` the
+    host ops' events averaged by input shape, else None)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=shapes) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if _device_us(e) > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
-    return wall, sorted(kernels, key=_device_us, reverse=True)
+    ops = prof.key_averages(group_by_input_shape=True) if shapes else None
+    return wall, sorted(kernels, key=_device_us, reverse=True), ops
 
 
 def _device_ms(kernels, match=lambda key: True) -> float:
@@ -1701,6 +2001,41 @@ def _device_us(evt) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def _expert_gemm_ms(ops, cfg) -> float:
+    """Device ms of the expert matrix products, from host ops averaged by
+    input shape: the kernels ``aten::bmm`` launches itself (its own device
+    time: no copy its operands may need) where the second operand is an
+    expert stack (G, d, f) or (G, f, d), the only 3-D weights the model
+    multiplies by."""
+    stacks = ([cfg.d_model, cfg.d_ff], [cfg.d_ff, cfg.d_model])
+    return sum(_device_us(e) for e in ops
+               if e.key == "aten::bmm" and len(e.input_shapes) >= 2
+               and len(e.input_shapes[1]) == 3
+               and list(e.input_shapes[1][1:]) in stacks) / 1e3
+
+
+def _routed_bound(ids: list, cfg) -> dict:
+    """The least time of the expert work the routes need, as if only the
+    routed tokens went through their experts: each MoE call (one per layer
+    of each step; ``ids`` (T, k) on the card) reads its distinct experts'
+    three matrices once and does 2 * 3 * d * f operations per (token,
+    expert) pair; against the dense dispatch's bound, which reads every
+    expert and multiplies every token by each."""
+    mat = 3 * cfg.d_model * cfg.d_ff
+    es = torch.empty((), dtype=cfg.dtype).element_size()
+    routed = [(int(torch.unique(i).numel()), i.numel()) for i in ids]
+    out = _bound(sum(e for e, _ in routed) * mat * es,
+                 sum(2 * mat * pairs for _, pairs in routed), cfg.dtype)
+    dense = _bound(len(ids) * cfg.num_experts * mat * es,
+                   sum(2 * mat * i.shape[0] * cfg.num_experts for i in ids),
+                   cfg.dtype)
+    return dict(routed_experts=[e for e, _ in routed],
+                routed_bound_ms=f"{out['bound_ms']:.4f}",
+                routed_bound_by=out["bound_by"],
+                dense_bound_ms=f"{dense['bound_ms']:.4f}",
+                dense_bound_by=dense["bound_by"])
 
 
 class _Eager:
@@ -1760,8 +2095,12 @@ def phase_profile(card: str, arch: str = ARCH, phase: str = "profile",
     CUDA-event span of the iteration, and the by-name breakdown is the
     eager run's. idle share = 1 - device / wall; host ms = wall - device,
     the iteration's host term (the cost model's ``t_fixed``). ``changes``
-    vary the config (profile_fp8: the e4m3 cache). Returns (label, plan,
-    wall ms, device ms) per graphed iteration."""
+    vary the config (profile_fp8: the e4m3 cache; profile_moe: arctic's
+    two layers). For an MoE model each eager iteration also reports the
+    device ms of its expert matrix products (host ops traced with their
+    shapes) and their share of the device time, beside the bound of the
+    experts its routes need alone and of the dense dispatch it runs.
+    Returns (label, plan, wall ms, device ms) per graphed iteration."""
     rows = []
     cfg = dataclasses.replace(get_config(arch), **(changes or {}))
     execs = ClusterRealExecutors(cfg, 2, max_slots=16, max_len=MAX_LEN,
@@ -1792,7 +2131,9 @@ def phase_profile(card: str, arch: str = ARCH, phase: str = "profile",
                 _run(execs, wid, plan, eager=mode == "eager")
                 ev[1].record()
 
-            profiled_wall, kernels = _profiled(once)
+            moe_eager = cfg.is_moe and mode == "eager"
+            with _Routes() as routes:
+                profiled_wall, kernels, ops = _profiled(once, moe_eager)
             wall = walls[mode, label]
             span = ev[0].elapsed_time(ev[1])
             dev = _device_ms(kernels)
@@ -1817,6 +2158,15 @@ def phase_profile(card: str, arch: str = ARCH, phase: str = "profile",
                 other_ms=f"{_device_ms(by_name) - attn - gemm:.3f}",
                 device_kernels=sum(e.count for e in by_name),
                 card=repr(card))
+            if moe_eager:
+                experts = _expert_gemm_ms(ops, cfg)
+                say(phase, iteration=repr(label), steps=mode,
+                    expert_gemm_ms=f"{experts:.3f}",
+                    expert_share=f"{experts / dev:.3f}",
+                    **_routed_bound(routes.ids, cfg), card=repr(card))
+                check(0 < experts <= gemm, f"{phase}: expert matmul time "
+                      f"{experts:.3f} ms outside (0, GEMM {gemm:.3f} ms] in "
+                      f"{label!r}")
             if mode == "eager":
                 for e in kernels[:4]:
                     say(phase, kernel=repr(e.key[:70]), count=e.count,
@@ -2141,49 +2491,66 @@ def phase_serve(card: str, phase: str, arch: str, kernels: dict,
               f"main path {variants}")
     for lat in (row["ttft_avg"], row["tpot_avg"]):
         check(math.isfinite(lat) and lat > 0, f"{phase}: bad latency")
-    del backend
+    del backend, graphs
     torch.cuda.empty_cache()
     return launches | {f"{name}.{v}": n for name, by in variants.items()
                        for v, n in by.items()}
 
 
+def run_phase(name: str, fn, *args):
+    """``fn(*args)``, a line with the phase's seconds, then what the phase
+    left freed (``_release``)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(name, phase_seconds=f"{time.perf_counter() - t0:.1f}")
+    _release()
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
-    phase_build()
-    records = phase_kernels(card)
-    phase_model()
-    phase_model_rwkv()
-    phase_model("model_gemma2")
-    phase_model("model_fp8")
-    ring_records, ring_launches = phase_model_ring(card)
-    store_records, store_launches = phase_paged_store(card)
+    run_phase("build", phase_build)
+    records = run_phase("kernels", phase_kernels, card)
+    run_phase("model", phase_model)
+    run_phase("model_rwkv", phase_model_rwkv)
+    run_phase("model_gemma2", phase_model, "model_gemma2")
+    run_phase("model_fp8", phase_model, "model_fp8")
+    run_phase("model_moe", phase_model_moe)
+    vlm_launches = run_phase("model_vlm", phase_model_vlm)
+    ring_records, ring_launches = run_phase("model_ring", phase_model_ring,
+                                            card)
+    store_records, store_launches = run_phase("paged_store",
+                                              phase_paged_store, card)
     records |= ring_records | store_records
-    phase_executor(card)
-    phase_executor_rwkv(card)
-    phase_graphs(card, ARCH)
-    phase_graphs(card, GEMMA2)
+    run_phase("executor", phase_executor, card)
+    run_phase("executor_rwkv", phase_executor_rwkv, card)
+    run_phase("graphs", phase_graphs, card, ARCH)
+    run_phase("graphs_gemma2", phase_graphs, card, GEMMA2)
     fp8 = {"kv_cache_quant": True}
-    profiled = phase_profile(card)
-    phase_profile(card, GEMMA2, "profile_gemma2")
-    phase_profile(card, ARCH, "profile_fp8", fp8)
-    phase_calibrate(card, profiled)
+    profiled = run_phase("profile", phase_profile, card)
+    run_phase("profile_gemma2", phase_profile, card, GEMMA2,
+              "profile_gemma2")
+    run_phase("profile_fp8", phase_profile, card, ARCH, "profile_fp8", fp8)
+    run_phase("profile_moe", phase_profile, card, ARCTIC, "profile_moe",
+              MOE_CUTS[ARCTIC])
+    run_phase("calibrate", phase_calibrate, card, profiled)
     attention = {"chunked_prefill": chunked_prefill,
                  "paged_attention": paged_attention}
     tensor_cores = dict.fromkeys(attention, ("tensor_core",))
     tensor_cores_e4m3 = dict.fromkeys(attention, ("tensor_core_e4m3",))
-    launches = {
-        "model_ring": ring_launches, "paged_store": store_launches,
-        "serve": phase_serve(card, "serve", ARCH, attention, tensor_cores),
-        "serve_rwkv": phase_serve(card, "serve_rwkv", RWKV, {"wkv6": wkv6},
-                                  {"wkv6": ("chunk", "decode")}),
-        "serve_gemma2": phase_serve(card, "serve_gemma2", GEMMA2, attention,
-                                    tensor_cores),
-        "serve_fp8": phase_serve(card, "serve_fp8", ARCH, attention,
-                                 tensor_cores_e4m3, fp8),
-        "serve_gemma2_fp8": phase_serve(card, "serve_gemma2_fp8", GEMMA2,
-                                        attention, tensor_cores_e4m3, fp8),
-    }
+    serves = (
+        ("serve", ARCH, attention, tensor_cores),
+        ("serve_rwkv", RWKV, {"wkv6": wkv6}, {"wkv6": ("chunk", "decode")}),
+        ("serve_gemma2", GEMMA2, attention, tensor_cores),
+        ("serve_fp8", ARCH, attention, tensor_cores_e4m3, fp8),
+        ("serve_gemma2_fp8", GEMMA2, attention, tensor_cores_e4m3, fp8),
+        ("serve_moe", ARCTIC, attention, tensor_cores, MOE_CUTS[ARCTIC]),
+        ("serve_vlm", PALIGEMMA, attention, tensor_cores))
+    launches = {"model_ring": ring_launches, "paged_store": store_launches,
+                "model_vlm": vlm_launches}
+    for phase, *args in serves:
+        launches[phase] = run_phase(phase, phase_serve, card, phase, *args)
     # a record's launches: its device kernel's on its main path (the e4m3
     # records' on the same path with the fp8 cache)
     main = {"chunked_prefill": ("serve", "chunked_prefill.tensor_core"),
@@ -2204,6 +2571,14 @@ def main() -> None:
                         ("paged_attention_store", "paged_store")):
         main[name] = (phase, "paged_attention.tensor_core")
         main[f"{name}_e4m3"] = (phase, "paged_attention.tensor_core_e4m3")
+    # arctic's and paligemma's decode on their serve paths; paligemma's
+    # prefix prefill in model_vlm (the serve path prefills text only)
+    main |= {"paged_attention_arctic": ("serve_moe",
+                                        "paged_attention.tensor_core"),
+             "paged_attention_paligemma": ("serve_vlm",
+                                           "paged_attention.tensor_core"),
+             "chunked_prefill_paligemma": ("model_vlm",
+                                           "chunked_prefill.tensor_core")}
     kernels = []
     for name, r in records.items():
         phase, key = main[name]

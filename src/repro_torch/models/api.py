@@ -1,14 +1,19 @@
 """Uniform model API, as in ``repro/models/api.py``, for the families the
-port carries so far: dense transformers (sliding windows, post-norms, the
-fp8 (e4m3) KV cache and gemma2's window-sized ring cache included), and
-rwkv6. The other families (moe, vlm, hybrid, encdec) have configs but no
-model yet, and ``build`` refuses them.
+port carries so far: transformers (dense with sliding windows, post-norms,
+the fp8 (e4m3) KV cache and gemma2's window-sized ring cache; moe; vlm, the
+backbone behind a stub frontend's patch features), and rwkv6. The hybrid
+and encdec families have configs but no model yet, and ``build`` refuses
+them.
 
   init(gen)                                  -> params (on gen.device)
   init_cache(batch, max_len, device)         -> dense: {"k","v"} (L,B,S,Hkv,D),
                                                 per-layer tuples for a ring;
                                                 rwkv: the recurrent state
-  prefill(params, cache, tokens, lengths)    -> (last_logits, cache)
+  prefill(params, cache, inputs, lengths)    -> (last_logits, cache); inputs
+                                                are tokens (B, S), or for a
+                                                vlm {"tokens", "prefix_embeds"}
+                                                with lengths counting the
+                                                prefix too (P + S)
   prefill_chunk(params, cache, chunk, starts, take=None) -> (logits, cache)
                                                 (None for rwkv: no
                                                 positional cache to extend)
@@ -49,17 +54,25 @@ def build(cfg: ModelConfig) -> ModelAPI:
             prefill=lambda p, c, t, l: rwkv6.prefill(p, c, t, l, cfg),
             decode=lambda p, c, t, l: rwkv6.decode(p, c, t, l, cfg),
         )
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port has no {cfg.family!r} model yet; "
-            "it serves dense models and rwkv6 so far, the other families "
-            "come with later slices (ROADMAP.md, queue 1)")
+            "it serves dense, moe and vlm transformers and rwkv6 so far, the "
+            "other families come with later slices (ROADMAP.md, queue 1)")
+
+    def prefill(params, cache, inputs, lengths):
+        if isinstance(inputs, dict):
+            return transformer.prefill(
+                params, cache, inputs["tokens"], lengths, cfg,
+                prefix_embeds=inputs.get("prefix_embeds"))
+        return transformer.prefill(params, cache, inputs, lengths, cfg)
+
     return ModelAPI(
         cfg=cfg,
         init=lambda gen: transformer.init_lm(gen, cfg),
         init_cache=lambda b, s, device: transformer.init_cache(cfg, b, s,
                                                                device),
-        prefill=lambda p, c, t, l: transformer.prefill(p, c, t, l, cfg),
+        prefill=prefill,
         decode=lambda p, c, t, l: transformer.decode(p, c, t, l, cfg),
         prefill_chunk=lambda p, c, ch, st, take=None:
             transformer.prefill_chunk(p, c, ch, st, cfg, take=take),

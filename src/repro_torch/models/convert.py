@@ -5,8 +5,8 @@ numpy arrays (``jax.tree.map(np.asarray, params)``), with its stacked
 leading layer axis, and returns the port's parameters: the same nested
 dict and the same layouts, as tensors on ``device``. Each leaf keeps its
 own dtype (bf16 stays bf16, f32 stays f32: rwkv6 keeps ``decay_base`` and
-``bonus_u`` in f32 in a bf16 model). With these, both packages compute the
-same function.
+``bonus_u`` in f32 in a bf16 model, and an MoE router stays f32). With
+these, both packages compute the same function.
 """
 from __future__ import annotations
 
@@ -15,13 +15,15 @@ import torch
 
 from repro_torch.models.layers import ModelConfig
 
-# the parameter trees of the ported families; anything else is not ported
+# the parameter trees of the ported families (dense, moe and vlm share the
+# transformer's); anything else is not ported
 _KEYS = {
     "dense": {
         "embed": {"table", "unembed"},
-        "blocks": {"norm_attn", "attn", "norm_mlp", "mlp", "norm_attn_post",
-                   "norm_mlp_post"},
+        "blocks": {"norm_attn", "attn", "norm_mlp", "mlp", "moe",
+                   "norm_attn_post", "norm_mlp_post"},
         "final_norm": {"scale", "bias"},
+        "vision_proj": set(),
     },
     "rwkv": {
         "embed": {"table", "unembed"},

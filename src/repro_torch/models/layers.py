@@ -102,22 +102,40 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 
+# Elements an initialiser draws in f32 at a time (256 MB): a larger tensor is
+# drawn piece by piece along its leading axes, straight into its storage
+# dtype, so that a full-width expert stack (arctic's two layers of w_gate
+# are 17.8 GB in bf16) never has an f32 copy of itself.
+DRAW_ELEMENTS = 1 << 26
+
+
+def _normal(gen: torch.Generator, shape, dtype, scale: float):
+    """N(0, scale^2) drawn in f32 and stored in ``dtype``, in pieces of at
+    most ``DRAW_ELEMENTS`` consecutive elements (row-major, so along the
+    leading axes); a tensor of one piece is drawn as one call."""
+    out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    flat = out.view(-1)
+    for lo in range(0, flat.numel(), DRAW_ELEMENTS):
+        n = min(DRAW_ELEMENTS, flat.numel() - lo)
+        w = torch.randn((n,), generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        flat[lo:lo + n] = (w * scale).to(dtype)
+    return out
+
+
 def _dense_init(gen: torch.Generator, shape, dtype, in_axis_size=None,
                 stack: int = 0):
-    """N(0, 1/fan_in) drawn in f32, stored in ``dtype``. ``stack`` > 0 draws
-    that many independent layers along a new leading axis."""
+    """N(0, 1/fan_in) drawn in f32, stored in ``dtype``; fan_in is
+    ``in_axis_size`` or ``shape[0]``, as in the JAX package (so an expert
+    stack (E, d, f) scales by 1/sqrt(E)). ``stack`` > 0 draws that many
+    independent layers along a new leading axis."""
     fan_in = in_axis_size if in_axis_size is not None else shape[0]
-    scale = 1.0 / math.sqrt(max(1, fan_in))
     full = ((stack,) if stack else ()) + tuple(shape)
-    w = torch.randn(full, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (w * scale).to(dtype)
+    return _normal(gen, full, dtype, 1.0 / math.sqrt(max(1, fan_in)))
 
 
 def _embed_init(gen: torch.Generator, shape, dtype):
-    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (w * 0.02).to(dtype)
+    return _normal(gen, shape, dtype, 0.02)
 
 
 # ---------------------------------------------------------------------------

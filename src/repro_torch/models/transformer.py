@@ -1,13 +1,14 @@
-"""Decoder-only transformer LM in PyTorch: the dense path.
+"""Decoder-only transformer LM in PyTorch: dense, MoE and VLM backbones.
 
 Counterpart of ``repro/models/transformer.py``. Parameters keep the JAX
 package's pytree: ``blocks`` holds every layer's weights stacked along a
 leading layer axis, and ``lax.scan`` over layers becomes a Python loop
 over that axis. gemma2's local/global sliding windows (the per-layer
 window of ``layer_windows_py``, in both attention kernels), sandwich
-post-norms, the fp8 (e4m3) KV cache (``kv_cache_quant``) and gemma2's
-window-sized ring cache (``window_sized_cache``, decode only) are carried;
-MoE and VLM prefixes wait for later slices (ROADMAP.md).
+post-norms, the fp8 (e4m3) KV cache (``kv_cache_quant``), gemma2's
+window-sized ring cache (``window_sized_cache``, decode only), MoE blocks
+(``models.moe``, with arctic's parallel dense residual MLP) and a VLM's
+projected patch prefix (``prefill(..., prefix_embeds=)``) are carried.
 
 Entry points:
   init_lm(gen, cfg)                               -> params
@@ -15,7 +16,8 @@ Entry points:
                                                      or per-layer tuples of
                                                      (B,S_l,Hkv,D) under
                                                      ``uses_ring``
-  prefill(params, cache, tokens, lengths, cfg)    -> (last_logits, cache)
+  prefill(params, cache, tokens, lengths, cfg, prefix_embeds=None)
+                                                  -> (last_logits, cache)
   prefill_chunk(params, cache, chunk, starts, cfg, take) -> (logits, cache)
   decode(params, cache, tokens, lengths, cfg)     -> (logits, cache)
 
@@ -32,6 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.layers import MaskSpec, ModelConfig
 
 NO_WINDOW = (2 ** 31 - 1) // 2  # "window" that never masks
@@ -50,13 +53,23 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig):
         "norm_attn": L.init_norm(cfg, dev, stack=n),
         "attn": L.init_attention(gen, cfg, stack=n),
         "norm_mlp": L.init_norm(cfg, dev, stack=n),
-        "mlp": L.init_mlp(gen, cfg, stack=n),
     }
     if cfg.use_post_norms:
         blocks["norm_attn_post"] = L.init_norm(cfg, dev, stack=n)
         blocks["norm_mlp_post"] = L.init_norm(cfg, dev, stack=n)
-    return {"embed": L.init_embedding(gen, cfg), "blocks": blocks,
-            "final_norm": L.init_norm(cfg, dev)}
+    if cfg.is_moe:
+        blocks["moe"] = M.init_moe(gen, cfg, stack=n)
+        if cfg.moe_dense_residual_ff:
+            blocks["mlp"] = L.init_mlp(gen, cfg, stack=n,
+                                       d_ff=cfg.moe_dense_residual_ff)
+    else:
+        blocks["mlp"] = L.init_mlp(gen, cfg, stack=n)
+    params = {"embed": L.init_embedding(gen, cfg), "blocks": blocks,
+              "final_norm": L.init_norm(cfg, dev)}
+    if cfg.vision_feature_dim:
+        params["vision_proj"] = L._dense_init(
+            gen, (cfg.vision_feature_dim, cfg.d_model), cfg.dtype)
+    return params
 
 
 def layer_windows_py(cfg: ModelConfig) -> list:
@@ -163,7 +176,12 @@ def _block_fn(bp, x, cfg: ModelConfig, *, positions, mask: MaskSpec, window,
         attn_out = L.apply_norm(bp["norm_attn_post"], attn_out, cfg)
     x = x + attn_out
     h = L.apply_norm(bp["norm_mlp"], x, cfg)
-    mlp_out = L.apply_mlp(bp["mlp"], h, cfg)
+    if cfg.is_moe:
+        mlp_out = M.apply_moe(bp["moe"], h, cfg)
+        if cfg.moe_dense_residual_ff:
+            mlp_out = mlp_out + L.apply_mlp(bp["mlp"], h, cfg)
+    else:
+        mlp_out = L.apply_mlp(bp["mlp"], h, cfg)
     if "norm_mlp_post" in bp:
         mlp_out = L.apply_norm(bp["norm_mlp_post"], mlp_out, cfg)
     return x + mlp_out, new_kv
@@ -204,12 +222,31 @@ def _last_logits(params, x, idx, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def prefill(params, cache, tokens, lengths, cfg: ModelConfig):
-    """Full-prompt prefill. tokens (B, S) padded; KV written at [0, S).
-    Returns (last_token_logits (B, V), cache). A cache with ring layers
-    raises (a ring is decode-only)."""
-    _refuse_ring(cache, "prefill")
+def _embed_inputs(params, tokens, cfg: ModelConfig, prefix_embeds=None):
+    """The token embeddings (scaled by sqrt(d_model)), after the projected
+    patch prefix when ``prefix_embeds`` (B, P, vision_feature_dim) is given:
+    ``prefix_embeds @ vision_proj`` in their promoted dtype, cast to the
+    model's and NOT scaled, as the JAX ``_embed_inputs`` does."""
     x = L.embed(params["embed"], tokens, cfg)
+    if prefix_embeds is None:
+        return x
+    w = params["vision_proj"]
+    dt = torch.promote_types(prefix_embeds.dtype, w.dtype)
+    vis = (prefix_embeds.to(dt) @ w.to(dt)).to(x.dtype)
+    return torch.cat([vis, x], dim=1)
+
+
+def prefill(params, cache, tokens, lengths, cfg: ModelConfig,
+            prefix_embeds: Optional[torch.Tensor] = None):
+    """Full-prompt prefill. tokens (B, S) padded; KV written at [0, S), or
+    with a VLM's ``prefix_embeds`` (B, P, F) at [0, P + S), the prefix
+    first. ``lengths`` counts every row the prefill writes up to the last
+    real token, the prefix's included (P + S for a full text row), as in
+    the JAX package: the logits are those of row ``lengths - 1`` and a
+    decode continues at ``lengths``. Returns (last_token_logits (B, V),
+    cache). A cache with ring layers raises (a ring is decode-only)."""
+    _refuse_ring(cache, "prefill")
+    x = _embed_inputs(params, tokens, cfg, prefix_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     zero = torch.zeros((b,), dtype=torch.int32, device=x.device)

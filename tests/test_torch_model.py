@@ -60,16 +60,19 @@ def test_configs_match_the_jax_package(arch):
 
 def test_unported_archs_raise_naming_the_roadmap():
     """Every architecture's config resolves (sim mode prices them all);
-    the model API refuses the families without a model yet, naming
-    ROADMAP.md, and builds gemma2's ring cache (served since its slice)."""
+    the model API refuses the families without a model yet (hybrid,
+    encdec), naming ROADMAP.md, and builds the moe and vlm families and
+    gemma2's ring cache (each served since its slice)."""
     import dataclasses
-    for arch, family in (("arctic-480b", "moe"), ("kimi-k2-1t", "moe"),
-                         ("paligemma-3b", "vlm"), ("zamba2-2.7b", "hybrid"),
+    for arch, family in (("zamba2-2.7b", "hybrid"),
                          ("whisper-medium", "encdec")):
         cfg = get_config(arch)
         assert cfg.family == family
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tapi.build(cfg)
+    for arch, family in (("arctic-480b", "moe"), ("kimi-k2-1t", "moe"),
+                         ("paligemma-3b", "vlm")):
+        assert tapi.build(get_config(arch)).cfg.family == family
     with pytest.raises(ValueError, match="unknown architecture"):
         get_config("llama-9000")
     cfg = dataclasses.replace(get_smoke("gemma2-2b"), scan_layers=False,
@@ -81,8 +84,11 @@ def test_unported_archs_raise_naming_the_roadmap():
 # -------------------------------------------------------- converter + init
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["arctic-480b", "kimi-k2-1t",
+                                          "paligemma-3b"])
 def test_converter_keeps_tree_layouts_and_values(arch):
+    """Every leaf, the MoE blocks (router, expert stacks, arctic's dense
+    residual MLP, kimi's shared expert) and paligemma's vision_proj too."""
     jcfg, tcfg, jm, tm, jp, tp = _models(arch)
     jflat = jax.tree_util.tree_flatten_with_path(jp)[0]
     for path, leaf in jflat:
@@ -92,6 +98,26 @@ def test_converter_keeps_tree_layouts_and_values(arch):
         assert tuple(node.shape) == leaf.shape
         assert node.dtype == tcfg.dtype
         np.testing.assert_array_equal(node.numpy(), np.asarray(leaf))
+    assert ("moe" in tp["blocks"]) == (jcfg.family == "moe")
+    assert ("vision_proj" in tp) == (jcfg.family == "vlm")
+
+
+@pytest.mark.parametrize("in_axis_size", [None, 48])
+def test_dense_init_draws_slice_wise_at_its_scale(monkeypatch, in_axis_size):
+    """A stacked (2, 4, 64, 48) weight drawn in pieces smaller than one
+    (64, 48) slice (``DRAW_ELEMENTS`` cut to 1000, so pieces straddle the
+    slices): every slice has mean about 0 and std about 1/sqrt(fan_in),
+    fan_in = shape[0] (4) or ``in_axis_size``, and no two slices repeat."""
+    monkeypatch.setattr(TL, "DRAW_ELEMENTS", 1000)
+    w = TL._dense_init(torch.Generator().manual_seed(0), (4, 64, 48),
+                       torch.bfloat16, in_axis_size=in_axis_size, stack=2)
+    assert tuple(w.shape) == (2, 4, 64, 48) and w.dtype == torch.bfloat16
+    want = (in_axis_size or 4) ** -0.5
+    slices = w.float().reshape(8, -1)
+    for s in slices:
+        assert abs(float(s.std()) - want) <= 0.05 * want
+        assert abs(float(s.mean())) <= 4 * want / 64 ** 0.5 / 48 ** 0.5
+    assert len({round(float(s[0]), 6) for s in slices}) == 8
 
 
 def test_torch_init_matches_jax_tree_and_scales():
