@@ -22,7 +22,10 @@ Phases (one line each, a non-zero exit on any failure):
             gemma2's prefill shape; the MoE and VLM heads: decode at
             arctic's G = 7 and kimi's G = 8 (D = 128) and paligemma's G = 8
             at D = 256 over one KV head, prefill at arctic's G = 7 and at
-            paligemma's 1088-token prefix from 0
+            paligemma's 1088-token prefix from 0; zamba2's shared block
+            (32 query over 32 KV heads of 80: the CUDA-core variants in
+            bf16 too) in prefill (2 rows of 256 at 0 and 384) and decode
+            (8 slots at 64..512, one slot at 1000)
             (attention: bf16 rtol = atol = 2e-2, f32 1e-4, sums run in
             another order; wkv6 against the sequential scan, bf16 and f32
             inputs alike: out rtol = atol = 3e-4, state rtol 3e-4 atol 3e-3,
@@ -38,7 +41,8 @@ Phases (one line each, a non-zero exit on any failure):
             same work (``time_ms``: the card sleeps before each timed call,
             so no host time is timed), the timed attention shapes again
             with e4m3 K/V (SDPA over bf16 copies, the widening timed apart),
-            and arctic's and paligemma's decode and paligemma's prefill
+            and arctic's and paligemma's decode and paligemma's prefill,
+            zamba2's prefill and decode at D = 80 and whisper's decode
   model     full-width qwen2-1.5b (random weights from a seed): prefill_chunk
             then decode steps through the kernels and through the plain
             attention, logits compared (stated tolerance below)
@@ -58,6 +62,19 @@ Phases (one line each, a non-zero exit on any failure):
             text tokens prefilled in one call (lengths 1088), then 8 decode
             steps, through the kernels (tensor-core variants only) and the
             plain attention, logits compared
+  model_zamba2  full-width zamba2-2.7b (54 mamba2 blocks, the shared
+            attention block after every 6), bf16: two rows' prompts of 512
+            tokens (the SSD's chunked form) and of 500 (the scan's function)
+            prefilled, then 16 decode steps each, through the kernels (the
+            CUDA-core variants only, every call shadowed) and the plain
+            attention, logits compared; parameters, weight and state bytes
+  model_whisper  full-width whisper-medium (24 + 24 layers), bf16: two rows
+            of 1500 seeded frame embeddings and a 64-token prompt
+            prefilled, then 16 decode steps, the decoder's self-attention
+            through the kernels (tensor-core variants only, launch counts
+            asserted) and the plain attention, logits compared; the
+            encoder's and the cross-attention's "full" attention is plain
+            torch ops in both, as JAX computes it through XLA
   model_ring  full-width gemma2-2b with the window-sized ring cache, bf16
             and e4m3: one slot prefilled to 4200 tokens on a full cache,
             copied into the ring cache (the local layers' 4096-slot rings
@@ -85,6 +102,9 @@ Phases (one line each, a non-zero exit on any failure):
             request's final chunk riding on another's decode, a migration,
             decode on both workers; a slot outside the decode batch must
             keep its state bit for bit
+  executor_zamba2  the same for zamba2-2.7b, whose nested state (the mamba
+            layers' leaves and the shared block's K/V) must keep every leaf
+            of a slot outside the decode batch bit for bit
   graphs    CUDA graphs against eager steps, full-width qwen2-1.5b and
             gemma2-2b: two workers sharing weights, prefill keys of 1-4
             rows, decode, mixed iterations and a migration, replayed in an
@@ -100,7 +120,10 @@ Phases (one line each, a non-zero exit on any failure):
             full-width gemma2-2b, profile_fp8 for qwen2-1.5b with the fp8
             (e4m3) cache, profile_moe for arctic-480b's 2 layers with the
             expert matrix products' share of the device time against the
-            bound of the experts the routes need
+            bound of the experts the routes need; profile_zamba2 the same
+            for zamba2-2.7b's eager steps (its family takes no graphs yet),
+            with the SSD's share of the device time and the decode batch's
+            K/V gather and scatter timed beside the decode
   calibrate perf.calibrate on the card: calibrate_hardware(H100) at serving
             shapes with and without the GEMM pass and
             calibrate_interference over decode batches (1, 4, 8) x chunks
@@ -120,11 +143,14 @@ Phases (one line each, a non-zero exit on any failure):
   serve_moe  the same on arctic-480b at full width, 2 of its 35 layers
             (varied as the fp8 phases vary the cache), the MoE main path
   serve_vlm  the same on paligemma-3b, text only (the VLM main path)
+  serve_zamba2  the same on zamba2-2.7b (the hybrid main path: both
+            attention kernels' CUDA-core bf16 instances and no other)
 Each phase prints its seconds. Each serve phase zeroes the kernels' launch counts just before it and reads
 them just after, per device kernel variant too (a CUDA graph replay adds
 what its capture counted): the dense paths must launch the tensor-core
 prefill and decode kernels, the gemma2 paths too (head_dim 256), the fp8
-paths their e4m3 instances and no other; the rwkv path both wkv6 kernels.
+paths their e4m3 instances and no other; the rwkv path both wkv6 kernels;
+the zamba2 path both attention kernels' CUDA-core instances (D = 80).
 The transformer paths' steps (dense, MoE, VLM) are CUDA graph replays.
 
 The last lines are the kernels' JSON record, the run's seconds, the
@@ -165,7 +191,7 @@ from repro_torch.kernels import (build, chunked_prefill, ops,  # noqa: E402
                                  paged_attention, ref, wkv6)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
-from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import mamba2, moe  # noqa: E402
 from repro_torch.models.layers import decode_page_size, to_e4m3  # noqa: E402
 from repro_torch.perf import H100, CostModel, WorkerSpec  # noqa: E402
 from repro_torch.perf.calibrate import (calibrate_hardware,  # noqa: E402
@@ -218,6 +244,15 @@ PALIGEMMA_HEADS = dict(hq=8, hkv=1, d=256)               # G = 8, MQA
 VLM_TEXT = 64
 VLM_SEQ = 1024 + VLM_TEXT
 VLM_LEN = 1152
+# the hybrid and encdec paths (full width and depth): zamba2's shared
+# attention block, 32 query over 32 KV heads of 80 (G = 1; D = 80 runs the
+# CUDA-core variants in bf16 too), and whisper's decoder, 16 heads of 64
+ZAMBA2 = "zamba2-2.7b"
+WHISPER = "whisper-medium"
+ZAMBA2_HEADS = dict(hq=32, hkv=32, d=80)
+WHISPER_HEADS = dict(hq=16, hkv=16, d=64)
+# the serve phases' decode lengths at 8 slots (64..512, sum 2455)
+SERVE_LENGTHS = (300, 420, 96, 512, 280, 333, 64, 450)
 LIBS = (paged_attention.LIB, chunked_prefill.LIB, wkv6.LIB)
 
 
@@ -732,6 +767,10 @@ def phase_kernels(card: str) -> dict:
             "paligemma_prefix_g8_d256_hkv1": pc(
                 gen, 2, VLM_SEQ, VLM_LEN, dtype, starts=[0, 0],
                 **PALIGEMMA_HEADS),
+            # zamba2's shared block: G = 1 at D = 80 (32 query rows a block
+            # on the CUDA-core variant, whatever the dtype)
+            "zamba2_d80_g1_sq256": pc(gen, 2, 256, MAX_LEN, dtype,
+                                      starts=[0, 384], **ZAMBA2_HEADS),
         }
         if kv is not None and dtype == torch.bfloat16:
             cases |= _e4m3_prefill_edges(gen)
@@ -791,6 +830,12 @@ def phase_kernels(card: str) -> dict:
             "kimi_g8_d128": dc(gen, 8, MAX_LEN, dtype, **KIMI_HEADS),
             "paligemma_g8_d256_hkv1": dc(gen, 8, MAX_LEN, dtype,
                                          **PALIGEMMA_HEADS),
+            # zamba2's decode: 8 slots at the serve lengths, one at 1000
+            "zamba2_d80_g1_slots8": dc(gen, 8, MAX_LEN, dtype,
+                                       lengths=list(SERVE_LENGTHS),
+                                       **ZAMBA2_HEADS),
+            "zamba2_d80_g1_one_slot_len1000": dc(
+                gen, 1, MAX_LEN, dtype, lengths=[1000], **ZAMBA2_HEADS),
         }
         if kv is not None and dtype == torch.bfloat16:
             cases |= _e4m3_decode_edges(gen)
@@ -867,6 +912,18 @@ def phase_kernels(card: str) -> dict:
         "chunked_prefill_paligemma",
         f"rows=2 Sq={VLM_SEQ} Smax={VLM_LEN} starts=[0,0] Hq=8 Hkv=1 D=256 "
         "bf16", pargs, pkw)
+    # zamba2's shared attention (the CUDA-core variants at D = 80) and
+    # whisper's decoder decode (tensor cores at D = 64), K/V in bf16 as
+    # their paths keep them
+    pargs, pkw = _prefill_case(gen, 2, 256, MAX_LEN, dtype, starts=[0, 384],
+                               **ZAMBA2_HEADS)
+    records["chunked_prefill_zamba2"] = _prefill_record(
+        "chunked_prefill_zamba2",
+        "rows=2 Sq=256 Smax=1024 starts=[0,384] Hq=32 Hkv=32 D=80 bf16",
+        pargs, pkw)
+    for key, lengths, shape, heads in HYBRID_ENCDEC_DECODE_TIMED:
+        r = _time_decode(gen, key, lengths, shape, **heads)
+        records[r["name"]] = r
     # wkv6: a decode step of 8 slots (its own device kernel), a prefill replay
     for key, variant, args, mode in (
             ("wkv6_decode", "decode", _wkv_case(gen, 8, 1, dtype,
@@ -933,6 +990,18 @@ MOE_VLM_DECODE_TIMED = (
     ("paged_attention_paligemma", (300, 420, 96, 512, 280, 333, 64, 450),
      "slots=8 max_len=1024 page=64 lengths~300 Hq=8 Hkv=1 D=256 bf16",
      PALIGEMMA_HEADS),
+)
+
+
+# zamba2's and whisper's decode steps of 8 slots (bf16, 64-token pages of a
+# 1024-token cache, the serve lengths)
+HYBRID_ENCDEC_DECODE_TIMED = (
+    ("paged_attention_zamba2", SERVE_LENGTHS,
+     "slots=8 max_len=1024 page=64 lengths~300 Hq=32 Hkv=32 D=80 bf16",
+     ZAMBA2_HEADS),
+    ("paged_attention_whisper", SERVE_LENGTHS,
+     "slots=8 max_len=1024 page=64 lengths~300 Hq=16 Hkv=16 D=64 bf16",
+     WHISPER_HEADS),
 )
 
 
@@ -1512,6 +1581,162 @@ def phase_model_vlm() -> dict:
     return {f"{m}.{v}": c for m, by in launches.items() for v, c in by.items()}
 
 
+# zamba2's prompts: 512 tokens (the SSD's chunked form) and 500 (the scan's
+# function: its tail padded to a whole chunk); decode steps after each
+ZAMBA2_PROMPTS = (512, 500)
+ZAMBA2_STEPS = 16
+
+
+def _bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _generate(api, params, cache, inputs, n, steps, tokens_in=None):
+    """``api.prefill(inputs)`` at lengths ``n``, then ``steps`` decode
+    steps (greedy, or teacher-forced with ``tokens_in``): (logits of each,
+    the decoded tokens, the cache)."""
+    logits, cache = api.prefill(params, cache, inputs, n)
+    outs, toks = [logits], []
+    for step in range(steps):
+        tok = logits.argmax(-1).to(torch.int32) if tokens_in is None \
+            else tokens_in[step]
+        toks.append(tok)
+        logits, cache = api.decode(params, cache, tok, n)
+        outs.append(logits)
+        n = n + 1
+    return outs, toks, cache
+
+
+def phase_model_zamba2() -> None:
+    """Full-width zamba2-2.7b (54 mamba2 blocks and the shared attention
+    block after every 6, bf16, weights from a seed): two rows' prompts of
+    512 tokens (the SSD's chunked form) and of 500 (the scan's function)
+    prefilled, then 16 decode steps each, through the kernels (the CUDA-core
+    variants only, D = 80; every attention call shadowed by the plain version
+    on its live inputs) and, teacher-forced, through the plain attention;
+    the logits of every step compared, the SSD states' difference printed,
+    and the kernel runs' launches per variant (counts zeroed just before
+    them)."""
+    cfg = get_config(ZAMBA2)
+    api = model_api.build(cfg)
+    params = api.init(torch.Generator(device=DEV).manual_seed(0))
+    rng = np.random.default_rng(0)
+    _zero_counts()
+    runs = []
+    with _ShadowAttention(torch.bfloat16) as shadow:
+        for t in ZAMBA2_PROMPTS:
+            prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, t)),
+                                     dtype=torch.int32, device=DEV)
+            n = torch.full((2,), t, dtype=torch.int32, device=DEV)
+            _expect_variant("cuda_core", lambda: runs.append(
+                (prompt, n) + _generate(api, params, api.init_cache(
+                    2, MAX_LEN, DEV), prompt, n, ZAMBA2_STEPS)),
+                chunked_prefill, paged_attention)
+    launches = _counts()
+    for prompt, n, got, toks, s_got in runs:
+        with _PlainKernels():
+            want, _, s_want = _generate(api, params, api.init_cache(
+                2, MAX_LEN, DEV), prompt, n, ZAMBA2_STEPS, toks)
+        rel, agree = _logit_errors(got, want)
+        ssd = [s["mamba"]["ssd"] for s in (s_got, s_want)]
+        ssd_rel = ((ssd[0] - ssd[1]).norm() / ssd[1].norm()).item()
+        finite = all(torch.isfinite(g).all().item()
+                     and tuple(g.shape) == (2, cfg.vocab_size) for g in got)
+        say("model_zamba2", arch=ZAMBA2, dtype="bfloat16",
+            prompt=prompt.shape[1],
+            ssd_form="chunked" if prompt.shape[1] % mamba2.CHUNK == 0
+            else "scan (tail padded)", decode_steps=ZAMBA2_STEPS,
+            logits_rel_l2=f"{rel:.3e}", tol=MODEL_TOL[torch.bfloat16],
+            argmax_agreement=f"{agree:.3f}", ssd_state_rel_l2=f"{ssd_rel:.3e}")
+        check(finite, "model_zamba2: non-finite logits or a wrong shape")
+        check(rel <= MODEL_TOL[torch.bfloat16],
+              f"model_zamba2: logits differ by {rel:.3e} (relative L2)")
+    state = api.init_cache(1, MAX_LEN, DEV)
+    say("model_zamba2",
+        params_b=f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f}",
+        weight_gb=f"{_bytes(params) / 1e9:.3f}",
+        state_mb_per_slot=f"{_bytes(state) / 1e6:.1f}",
+        kv_mb_per_slot=f"{_bytes({k: state[k] for k in 'kv'}) / 1e6:.1f}",
+        attention_calls=shadow.calls,
+        worst_call_share_of_kernel_tol=f"{shadow.worst:.3f}",
+        launches=launches)
+    check(shadow.worst <= 1.0, f"model_zamba2: an attention call is "
+          f"{shadow.worst:.2f}x the kernel tolerance from the plain version")
+    inv = (cfg.num_layers + cfg.attn_every - 1) // cfg.attn_every
+    check(shadow.calls == 2 * inv * (1 + ZAMBA2_STEPS),
+          f"model_zamba2: {shadow.calls} attention calls")
+
+
+# whisper-medium's inputs: 1500 frame embeddings (its 30 s window after the
+# conv frontend, a stub in JAX too) and a 64-token decoder prompt
+WHISPER_FRAMES = 1500
+WHISPER_PROMPT = 64
+WHISPER_STEPS = 16
+
+
+def phase_model_whisper() -> dict:
+    """Full-width whisper-medium (24 encoder + 24 decoder layers, bf16,
+    weights from a seed): two rows of 1500 seeded frame embeddings and a
+    64-token decoder prompt prefilled (the encoder, the cross K/V, the
+    decoder's causal prefill), then 16 decode steps, through the kernels
+    (the decoder's self-attention: tensor-core variants only, every call
+    shadowed) and, teacher-forced, through the plain attention; the logits
+    compared. The encoder's and the cross-attention's bidirectional
+    ("full") attention is plain torch ops in both runs, as JAX computes it
+    through XLA. Returns the kernel run's launches per variant (counts
+    zeroed just before it)."""
+    cfg = get_config(WHISPER)
+    api = model_api.build(cfg)
+    params = api.init(torch.Generator(device=DEV).manual_seed(0))
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    inputs = {
+        "frames": torch.randn((2, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                              device=DEV).to(cfg.dtype),
+        "tokens": torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, WHISPER_PROMPT)), dtype=torch.int32,
+            device=DEV)}
+    n = torch.full((2,), WHISPER_PROMPT, dtype=torch.int32, device=DEV)
+
+    def run(tokens_in=None):
+        cache = api.init_cache(2, MAX_LEN, DEV, enc_len=WHISPER_FRAMES)
+        return _generate(api, params, cache, inputs, n, WHISPER_STEPS,
+                         tokens_in)
+
+    result = []
+    _zero_counts()
+    with _ShadowAttention(torch.bfloat16) as shadow:
+        _expect_variant("tensor_core", lambda: result.extend(run()),
+                        chunked_prefill, paged_attention)
+    launches = _counts()
+    got, toks, cache = result
+    with _PlainKernels():
+        want, _, _ = run(toks)
+    rel, agree = _logit_errors(got, want)
+    finite = all(torch.isfinite(g).all().item()
+                 and tuple(g.shape) == (2, cfg.vocab_size) for g in got)
+    say("model_whisper", arch=WHISPER, dtype="bfloat16",
+        params_b=f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f}",
+        frames=WHISPER_FRAMES, prompt=WHISPER_PROMPT,
+        decode_steps=WHISPER_STEPS,
+        cross_kv_shape=list(cache["cross_k"].shape),
+        logits_rel_l2=f"{rel:.3e}", tol=MODEL_TOL[torch.bfloat16],
+        argmax_agreement=f"{agree:.3f}", attention_calls=shadow.calls,
+        worst_call_share_of_kernel_tol=f"{shadow.worst:.3f}",
+        launches=launches)
+    check(finite, "model_whisper: non-finite logits or a wrong shape")
+    check(shadow.worst <= 1.0, f"model_whisper: an attention call is "
+          f"{shadow.worst:.2f}x the kernel tolerance from the plain version")
+    check(rel <= MODEL_TOL[torch.bfloat16],
+          f"model_whisper: logits differ by {rel:.3e} (relative L2)")
+    want_launches = {"chunked_prefill": cfg.num_layers,
+                     "paged_attention": cfg.num_layers * WHISPER_STEPS}
+    check(all(launches[m]["tensor_core"] == k
+              for m, k in want_launches.items()),
+          f"model_whisper: launches {launches}, want {want_launches} "
+          "tensor-core ones")
+    return {f"{m}.{v}": c for m, by in launches.items() for v, c in by.items()}
+
+
 # gemma2's ring phase: decode steps past the 4200-token prompt, the local
 # layers' 4096-slot rings long wrapped
 RING_STEPS = 16
@@ -1876,14 +2101,27 @@ def phase_executor(card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_executor_rwkv(card: str) -> None:
-    """Two rwkv6-7b workers sharing weights: prefill chunks replay the
-    prompt so far, b's final chunk rides on a's decode, a migration replays
-    b on worker 1, decode runs on both. b's state after the mixed iteration
-    must equal a fresh prefill of its prompt, and a decode of a alone must
-    leave b's slot bit for bit as it was. The mixed iteration and a decode
-    of two slots run under torch.profiler."""
-    cfg = get_config(RWKV)
+def _leaf_items(tree, path=()):
+    """(path, leaf) of every leaf of a nested dict of tensors."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_items(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def phase_executor_stateful(card: str, arch: str, phase: str,
+                            modules: tuple) -> None:
+    """Two workers of a stateful family (rwkv6-7b, zamba2-2.7b) sharing
+    weights: prefill chunks replay the prompt so far, b's final chunk rides
+    on a's decode, a migration replays b on worker 1, decode runs on both.
+    b's state after the mixed iteration must equal a fresh prefill of its
+    prompt, and a decode of a alone must leave every leaf of b's slot
+    (zamba2's nested mamba leaves and its K/V included) bit for bit as it
+    was. The mixed iteration and a decode of two slots run under
+    torch.profiler; ``modules``' kernels must show device time there and
+    launch on the run."""
+    cfg = get_config(arch)
     execs = ClusterRealExecutors(cfg, 2, max_slots=4, max_len=MAX_LEN,
                                  seed=0)
     e0, e1 = execs.execs[0], execs.execs[1]
@@ -1906,9 +2144,9 @@ def phase_executor_rwkv(card: str) -> None:
 
     def slot_state(ex, rid):
         slot = ex.slot_of[rid]
-        return {k: v[:, slot].clone() for k, v in ex.cache.items()}
+        return {p: v[:, slot].clone() for p, v in _leaf_items(ex.cache)}
 
-    k0 = wkv6.launches
+    k0 = [m.launches for m in modules]
     for label, ex, plan in steps:
         before = slot_state(e0, b.rid) if label == outside else None
         t0 = time.perf_counter()
@@ -1917,15 +2155,18 @@ def phase_executor_rwkv(card: str) -> None:
         elif label in (mixed, "decode a b"):
             wall, kernels, _ = _profiled(lambda: ex.run_plan(plan))
             dev = _device_ms(kernels)
-            wkv_ms = _device_ms(kernels, _named(wkv6))
+            kernel_ms = _device_ms(kernels, _named(*modules))
             gemm = _device_ms(kernels, _is_gemm)
-            check(wkv_ms > 0, f"executor_rwkv: no device time under the "
-                  f"names {sorted(wkv6.KERNELS.values())} in {label!r}")
-            say("executor_rwkv", profiled=repr(label), wall_ms=f"{wall:.3f}",
+            check(kernel_ms > 0, f"{phase}: no device time under the names "
+                  f"{sorted(n for m in modules for n in m.KERNELS.values())} "
+                  f"in {label!r}")
+            say(phase, profiled=repr(label), wall_ms=f"{wall:.3f}",
                 device_ms=f"{dev:.3f}" if dev else "not-measured",
                 idle_share=f"{1 - dev / wall:.3f}" if dev else "not-measured",
-                wkv6_ms=f"{wkv_ms:.3f}", gemm_ms=f"{gemm:.3f}",
-                other_ms=f"{dev - wkv_ms - gemm:.3f}",
+                kernel_ms=f"{kernel_ms:.3f}",
+                kernels=",".join(_short(m) for m in modules),
+                gemm_ms=f"{gemm:.3f}",
+                other_ms=f"{dev - kernel_ms - gemm:.3f}",
                 device_kernels=sum(e.count for e in kernels), card=repr(card))
         else:
             ex.run_plan(plan)
@@ -1933,39 +2174,44 @@ def phase_executor_rwkv(card: str) -> None:
             for r, t in plan.prefill_parts:      # the engine's bookkeeping
                 r.prefilled_tokens += t
         torch.cuda.synchronize()
-        say("executor_rwkv", step=repr(label),
+        say(phase, step=repr(label),
             ms=f"{(time.perf_counter() - t0) * 1e3:.3f}", card=repr(card))
         if label == mixed:
             fresh = e0.api.init_cache(1, MAX_LEN, DEV)
             e0.api.prefill(e0.params, fresh, e0._tensor(e0.prompts[b.rid][None]),
                            e0._tensor(np.asarray([b.prompt_len])))
             got = slot_state(e0, b.rid)
-            rel = max(((got[k].float() - fresh[k][:, 0].float()).norm()
-                       / fresh[k].float().norm()).item() for k in got)
-            say("executor_rwkv", b_state_vs_fresh_prefill_rel_l2=f"{rel:.3e}")
-            check(rel <= 1e-3, f"executor_rwkv: b's state after the mixed "
+            ref_leaves = dict(_leaf_items(fresh))
+            rel = max(((got[p].float() - ref_leaves[p][:, 0].float()).norm()
+                       / ref_leaves[p].float().norm().clamp_min(1e-30)).item()
+                      for p in got)
+            say(phase, b_state_vs_fresh_prefill_rel_l2=f"{rel:.3e}",
+                leaves=len(got))
+            check(rel <= 1e-3, f"{phase}: b's state after the mixed "
                   f"iteration differs from a fresh prefill by {rel:.3e}")
         if before is not None:
             after = slot_state(e0, b.rid)
-            check(all(torch.equal(before[k], after[k]) for k in before),
-                  "executor_rwkv: decoding a changed b's slot")
+            check(all(torch.equal(before[p], after[p]) for p in before),
+                  f"{phase}: decoding a changed b's slot")
     streams = {0: e0.generated[0], 1: e1.generated[1], 2: e1.generated[2]}
     want = {0: 5, 1: 4, 2: 3}             # 1 from the prefill + decodes
     for rid, toks in streams.items():
         check(len(toks) == want[rid] and all(0 <= t < cfg.vocab_size
                                              for t in toks),
-              f"executor_rwkv: rid {rid} stream {toks}")
-    check(wkv6.launches > k0, "executor_rwkv did not launch wkv6")
-    say("executor_rwkv", streams={k: len(v) for k, v in streams.items()},
-        wkv6_launches=wkv6.launches - k0, slot_outside_batch="unchanged")
+              f"{phase}: rid {rid} stream {toks}")
+    launched = {_short(m): m.launches - n for m, n in zip(modules, k0)}
+    check(all(n > 0 for n in launched.values()),
+          f"{phase}: a kernel did not launch {launched}")
+    say(phase, streams={k: len(v) for k, v in streams.items()},
+        launches=launched, slot_outside_batch="unchanged")
     del execs
     torch.cuda.empty_cache()
 
 
 def _profiled(fn, shapes: bool = False):
     """Run ``fn`` under torch.profiler: (wall ms, the device kernels'
-    averaged events, largest device time first, and with ``shapes`` the
-    host ops' events averaged by input shape, else None)."""
+    averaged events, largest device time first, and every event averaged:
+    with ``shapes`` by input shape as well)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1974,10 +2220,15 @@ def _profiled(fn, shapes: bool = False):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+    events = prof.key_averages()
+    kernels = [e for e in events if _device_us(e) > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
-    ops = prof.key_averages(group_by_input_shape=True) if shapes else None
+    ops = prof.key_averages(group_by_input_shape=True) if shapes else events
     return wall, sorted(kernels, key=_device_us, reverse=True), ops
+
+
+def _short(module) -> str:
+    return module.__name__.rsplit(".", 1)[-1]
 
 
 def _device_ms(kernels, match=lambda key: True) -> float:
@@ -2180,6 +2431,136 @@ def phase_profile(card: str, arch: str = ARCH, phase: str = "profile",
     del execs
     torch.cuda.empty_cache()
     return rows
+
+
+class _SSDRegions:
+    """Inside this block every SSD call of the mamba2 blocks runs inside a
+    ``torch.profiler.record_function`` region named ``NAME`` (a call inside
+    another one, the scan's chunked form, in its caller's only), so that a
+    profile gives the device time of the kernels the SSD launched. The
+    profiler also lists each region on the device as an event of its own
+    whose time is the region's span there, idle gaps included: not a
+    kernel."""
+
+    NAME = "ssd"
+    NAMES = ("ssd_chunked", "ssd_scan", "ssd_decode")
+
+    def __enter__(self):
+        self.saved = {n: getattr(mamba2, n) for n in self.NAMES}
+        depth = [0]
+
+        def region(fn):
+            def run(*args):
+                if depth[0]:
+                    return fn(*args)
+                depth[0] += 1
+                try:
+                    with torch.profiler.record_function(self.NAME):
+                        return fn(*args)
+                finally:
+                    depth[0] -= 1
+            return run
+
+        for n, fn in self.saved.items():
+            setattr(mamba2, n, region(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(mamba2, n, fn)
+
+
+def _region_ms(ops, name: str) -> float:
+    """Device ms of the kernels launched inside the host regions ``name``
+    (their children's included)."""
+    total = 0.0
+    for e in ops:
+        if e.key == name and e.device_type == torch.autograd.DeviceType.CPU:
+            total += next(float(getattr(e, a)) for a in (
+                "device_time_total", "cuda_time_total") if hasattr(e, a))
+    return total / 1e3
+
+
+def phase_profile_stateful(card: str, arch: str, phase: str) -> None:
+    """Where a stateful family's iteration goes (zamba2-2.7b, eager: it
+    takes no CUDA graphs yet): torch.profiler over the profile phase's
+    prefill (8 requests x 256 tokens, each replayed on its own), decode (8
+    slots) and mixed (a 256-token chunk + the 8 decodes) iterations on one
+    worker, after a warm pass and an unprofiled pass that gives each
+    iteration's wall time. Prints wall and device ms, idle share, host ms,
+    attention, GEMM and other ms, the SSD's device ms and share (the
+    kernels launched inside ``_SSDRegions``), then the decode batch's K/V
+    gather and scatter (``_decode_slots`` moves every leaf's batch rows;
+    the shared block's K/V are the large ones) timed alone beside the
+    decode's device time."""
+    cfg = get_config(arch)
+    execs = ClusterRealExecutors(cfg, 1, max_slots=16, max_len=MAX_LEN,
+                                 seed=0)
+    ex = execs.execs[0]
+
+    def drive(reqs, profile: bool):
+        for label, plan in _profile_plans(reqs):
+            if label is None or not profile:
+                t0 = time.perf_counter()
+                ex.run_plan(plan)
+                walls[label] = (time.perf_counter() - t0) * 1e3
+            else:
+                with _SSDRegions():
+                    prof_wall, kernels, ops = _profiled(
+                        lambda: ex.run_plan(plan))
+                yield label, prof_wall, [e for e in kernels
+                                         if e.key != _SSDRegions.NAME], ops
+            for r, t in plan.prefill_parts:
+                r.prefilled_tokens += t
+
+    walls = {}
+    for base in (100, 200):                  # warm, then the timed walls
+        warm = [_req(base + i, 256 + i) for i in range(9)]
+        for _ in drive(warm, False):
+            pass
+        for r in warm:
+            execs.on_finish(r)
+    timed = dict(walls)
+    reqs = [_req(i, 256 + i) for i in range(9)]
+    decode_dev = 0.0
+    for label, prof_wall, kernels, ops in drive(reqs, True):
+        dev = _device_ms(kernels)
+        attn = _device_ms(kernels, _named(chunked_prefill, paged_attention))
+        gemm = _device_ms(kernels, _is_gemm)
+        ssd = _region_ms(ops, _SSDRegions.NAME)
+        wall = timed[label]
+        check(attn > 0, f"{phase}: no attention kernel time in {label!r}")
+        say(phase, arch=arch, iteration=repr(label), steps="eager",
+            wall_ms=f"{wall:.3f}", device_ms=f"{dev:.3f}",
+            profiled_wall_ms=f"{prof_wall:.3f}",
+            idle_share=f"{1 - dev / wall:.3f}", host_ms=f"{wall - dev:.3f}",
+            attention_kernels_ms=f"{attn:.3f}", gemm_ms=f"{gemm:.3f}",
+            other_ms=f"{dev - attn - gemm:.3f}",
+            ssd_ms=f"{ssd:.3f}" if ssd else "not-measured",
+            ssd_share=f"{ssd / dev:.3f}" if ssd else "not-measured",
+            device_kernels=sum(e.count for e in kernels), card=repr(card))
+        for e in kernels[:4]:
+            say(phase, kernel=repr(e.key[:70]), count=e.count,
+                device_ms=f"{_device_us(e) / 1e3:.3f}")
+        if label == "decode 8":
+            decode_dev = dev
+    idx = torch.tensor([ex.slot_of[r.rid] for r in reqs[:8]], device=DEV)
+
+    def gather_scatter(leaves):
+        for a in leaves:
+            a.index_copy_(1, idx, a.index_select(1, idx))
+
+    kv = [ex.cache["k"], ex.cache["v"]]
+    kv_ms = time_ms(lambda: gather_scatter(kv))
+    all_ms = time_ms(lambda: gather_scatter(list(_leaves(ex.cache))))
+    kv_bytes = sum(a[:, :8].numel() * a.element_size() for a in kv)
+    say(phase, kv_gather_scatter_ms=f"{kv_ms:.4f}",
+        state_gather_scatter_ms=f"{all_ms:.4f}",
+        kv_bytes_each_way_gb=f"{kv_bytes / 1e9:.3f}",
+        kv_bound_ms=f"{4 * kv_bytes / HBM_BYTES_PER_S * 1e3:.4f}",
+        kv_share_of_decode_device=f"{kv_ms / decode_dev:.3f}",
+        card=repr(card))
+    del execs
 
 
 # The graphs phase's iterations, as (worker, prefill parts, decode
@@ -2518,13 +2899,18 @@ def main() -> None:
     run_phase("model_fp8", phase_model, "model_fp8")
     run_phase("model_moe", phase_model_moe)
     vlm_launches = run_phase("model_vlm", phase_model_vlm)
+    run_phase("model_zamba2", phase_model_zamba2)
+    whisper_launches = run_phase("model_whisper", phase_model_whisper)
     ring_records, ring_launches = run_phase("model_ring", phase_model_ring,
                                             card)
     store_records, store_launches = run_phase("paged_store",
                                               phase_paged_store, card)
     records |= ring_records | store_records
     run_phase("executor", phase_executor, card)
-    run_phase("executor_rwkv", phase_executor_rwkv, card)
+    run_phase("executor_rwkv", phase_executor_stateful, card, RWKV,
+              "executor_rwkv", (wkv6,))
+    run_phase("executor_zamba2", phase_executor_stateful, card, ZAMBA2,
+              "executor_zamba2", (chunked_prefill, paged_attention))
     run_phase("graphs", phase_graphs, card, ARCH)
     run_phase("graphs_gemma2", phase_graphs, card, GEMMA2)
     fp8 = {"kv_cache_quant": True}
@@ -2534,11 +2920,14 @@ def main() -> None:
     run_phase("profile_fp8", phase_profile, card, ARCH, "profile_fp8", fp8)
     run_phase("profile_moe", phase_profile, card, ARCTIC, "profile_moe",
               MOE_CUTS[ARCTIC])
+    run_phase("profile_zamba2", phase_profile_stateful, card, ZAMBA2,
+              "profile_zamba2")
     run_phase("calibrate", phase_calibrate, card, profiled)
     attention = {"chunked_prefill": chunked_prefill,
                  "paged_attention": paged_attention}
     tensor_cores = dict.fromkeys(attention, ("tensor_core",))
     tensor_cores_e4m3 = dict.fromkeys(attention, ("tensor_core_e4m3",))
+    cuda_cores = dict.fromkeys(attention, ("cuda_core",))
     serves = (
         ("serve", ARCH, attention, tensor_cores),
         ("serve_rwkv", RWKV, {"wkv6": wkv6}, {"wkv6": ("chunk", "decode")}),
@@ -2546,9 +2935,10 @@ def main() -> None:
         ("serve_fp8", ARCH, attention, tensor_cores_e4m3, fp8),
         ("serve_gemma2_fp8", GEMMA2, attention, tensor_cores_e4m3, fp8),
         ("serve_moe", ARCTIC, attention, tensor_cores, MOE_CUTS[ARCTIC]),
-        ("serve_vlm", PALIGEMMA, attention, tensor_cores))
+        ("serve_vlm", PALIGEMMA, attention, tensor_cores),
+        ("serve_zamba2", ZAMBA2, attention, cuda_cores))
     launches = {"model_ring": ring_launches, "paged_store": store_launches,
-                "model_vlm": vlm_launches}
+                "model_vlm": vlm_launches, "model_whisper": whisper_launches}
     for phase, *args in serves:
         launches[phase] = run_phase(phase, phase_serve, card, phase, *args)
     # a record's launches: its device kernel's on its main path (the e4m3
@@ -2579,6 +2969,15 @@ def main() -> None:
                                            "paged_attention.tensor_core"),
              "chunked_prefill_paligemma": ("model_vlm",
                                            "chunked_prefill.tensor_core")}
+    # zamba2's shared attention on its serve path (the CUDA-core variants
+    # at D = 80); whisper's decoder decode in model_whisper (the executors
+    # refuse encdec, as the JAX executor cannot serve it)
+    main |= {"chunked_prefill_zamba2": ("serve_zamba2",
+                                        "chunked_prefill.cuda_core"),
+             "paged_attention_zamba2": ("serve_zamba2",
+                                        "paged_attention.cuda_core"),
+             "paged_attention_whisper": ("model_whisper",
+                                         "paged_attention.tensor_core")}
     kernels = []
     for name, r in records.items():
         phase, key = main[name]

@@ -3,9 +3,9 @@
 Each module defines CONFIG (the full-size config) and SMOKE (a reduced
 same-family config for CPU tests), as in the JAX package, and the registry
 lists the JAX package's 11 architectures. Every config prices a worker in
-the serve CLI's sim mode; ``models.api.build`` builds the dense ones
-(gemma2 included) and rwkv6, and refuses the moe, vlm, hybrid and encdec
-families until their slices (ROADMAP.md, queue 1).
+the serve CLI's sim mode, and ``models.api.build`` builds every one; the
+executors serve all but the encdec family (whisper), which they refuse as
+the JAX executor cannot serve it.
 """
 from __future__ import annotations
 

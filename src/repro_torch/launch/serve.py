@@ -5,7 +5,9 @@ Two modes, as in the JAX launcher (``repro/launch/serve.py``):
 * ``--mode real`` (the default here): drives the ``ClusterScheduler`` (the
   port's copy of the JAX package's) against real PyTorch model execution
   through ``RealTorchBackend``, on the card unless ``--device cpu`` asks
-  for the CPU. JSON ``backend`` is ``"real-torch"``.
+  for the CPU. JSON ``backend`` is ``"real-torch"``. It serves every
+  family but encdec (whisper), which the executors refuse at construction
+  as the JAX real mode fails on it (``serving.executor.refuse_encdec``).
 * ``--mode sim``: the cluster-scale discrete-event run the paper's figures
   use, the JAX launcher's default mode: the full-size config of any of the
   11 architectures priced by the copied cost model (``--tp``-way workers,
@@ -46,6 +48,8 @@ Examples:
       --arch arctic-480b --json
   PYTHONPATH=src python -m repro_torch.launch.serve --mode real \
       --arch rwkv6-7b --size full --rate 1.5 --duration 5 --workers 2 --json
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode real \
+      --arch zamba2-2.7b --device cpu --rate 2 --duration 4 --workers 2 --json
 """
 from __future__ import annotations
 

@@ -1,36 +1,42 @@
-"""Uniform model API, as in ``repro/models/api.py``, for the families the
-port carries so far: transformers (dense with sliding windows, post-norms,
-the fp8 (e4m3) KV cache and gemma2's window-sized ring cache; moe; vlm, the
-backbone behind a stub frontend's patch features), and rwkv6. The hybrid
-and encdec families have configs but no model yet, and ``build`` refuses
-them.
+"""Uniform model API, as in ``repro/models/api.py``, for every family of
+the JAX package: transformers (dense with sliding windows, post-norms, the
+fp8 (e4m3) KV cache and gemma2's window-sized ring cache; moe; vlm, the
+backbone behind a stub frontend's patch features), rwkv6, the hybrid
+(zamba2: mamba2 blocks and a shared attention block) and the encdec
+(whisper, behind a stub frame frontend).
 
   init(gen)                                  -> params (on gen.device)
   init_cache(batch, max_len, device)         -> dense: {"k","v"} (L,B,S,Hkv,D),
                                                 per-layer tuples for a ring;
-                                                rwkv: the recurrent state
+                                                rwkv, hybrid: the recurrent
+                                                state (hybrid: nested, with
+                                                the shared block's K/V);
+                                                encdec also takes
+                                                ``enc_len`` (default
+                                                max(8, S // 4), as JAX)
   prefill(params, cache, inputs, lengths)    -> (last_logits, cache); inputs
-                                                are tokens (B, S), or for a
+                                                are tokens (B, S), for a
                                                 vlm {"tokens", "prefix_embeds"}
                                                 with lengths counting the
-                                                prefix too (P + S)
+                                                prefix too (P + S), for an
+                                                encdec {"frames", "tokens"}
   prefill_chunk(params, cache, chunk, starts, take=None) -> (logits, cache)
-                                                (None for rwkv: no
-                                                positional cache to extend)
+                                                (None for rwkv, hybrid and
+                                                encdec, as in JAX)
   decode(params, cache, tokens, lengths)     -> (logits, cache)
   prepare(params)                            -> params for repeated steps
                                                 (dense: per-layer views
                                                 built once)
 
 The cache or state is updated in place (see ``models.transformer``,
-``models.rwkv6``).
+``models.rwkv6``, ``models.zamba2``, ``models.whisper``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import rwkv6, transformer, whisper, zamba2
 from repro_torch.models.layers import ModelConfig
 
 
@@ -54,11 +60,27 @@ def build(cfg: ModelConfig) -> ModelAPI:
             prefill=lambda p, c, t, l: rwkv6.prefill(p, c, t, l, cfg),
             decode=lambda p, c, t, l: rwkv6.decode(p, c, t, l, cfg),
         )
+    if cfg.family == "hybrid":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda gen: zamba2.init_lm(gen, cfg),
+            init_cache=lambda b, s, device: zamba2.init_state(cfg, b, s,
+                                                              device),
+            prefill=lambda p, c, t, l: zamba2.prefill(p, c, t, l, cfg),
+            decode=lambda p, c, t, l: zamba2.decode(p, c, t, l, cfg),
+        )
+    if cfg.family == "encdec":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda gen: whisper.init_lm(gen, cfg),
+            init_cache=lambda b, s, device, enc_len=0: whisper.init_cache(
+                cfg, b, s, enc_len or max(8, s // 4), device),
+            prefill=lambda p, c, inputs, l: whisper.prefill(
+                p, c, inputs["frames"], inputs["tokens"], l, cfg),
+            decode=lambda p, c, t, l: whisper.decode(p, c, t, l, cfg),
+        )
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the PyTorch port has no {cfg.family!r} model yet; "
-            "it serves dense, moe and vlm transformers and rwkv6 so far, the "
-            "other families come with later slices (ROADMAP.md, queue 1)")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
     def prefill(params, cache, inputs, lengths):
         if isinstance(inputs, dict):

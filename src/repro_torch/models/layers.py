@@ -138,6 +138,13 @@ def _embed_init(gen: torch.Generator, shape, dtype):
     return _normal(gen, shape, dtype, 0.02)
 
 
+def layer(tree, i: int):
+    """Layer ``i``'s views of a tree of weights (or states) stacked on a
+    leading layer axis (``jax.tree.map(lambda a: a[i], tree)``)."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -245,10 +252,9 @@ class MaskSpec:
       * "ring"    — decode over a window-sized ring cache of Sk slots:
                     kpos <= lengths[b], or every slot once the ring has
                     wrapped (lengths[b] + 1 >= Sk)
+      * "full"    — bidirectional (whisper's encoder and cross-attention)
     ``window``: additionally restrict to kpos > qpos - window ("lengths":
     kpos > lengths[b] - window).
-    The JAX package's "full" kind waits for the whisper slice (see
-    ROADMAP.md).
     """
     kind: str = "causal"
     window: Optional[int] = None
@@ -263,15 +269,25 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, mask: MaskSpec,
-                    kv_cache: tuple[torch.Tensor, torch.Tensor],
-                    cache_positions: torch.Tensor,
+                    kv_cache: Optional[tuple] = None,
+                    cache_positions: Optional[torch.Tensor] = None,
                     lengths: Optional[torch.Tensor] = None,
-                    rope: bool = True, tables: Optional[dict] = None):
-    """Self-attention over a KV cache (B, Smax, Hkv, D).
+                    rope: bool = True, tables: Optional[dict] = None,
+                    cross_kv: Optional[tuple] = None):
+    """Self-attention over a KV cache (B, Smax, Hkv, D), over x itself, or
+    cross-attention over fixed K/V.
 
-    Writes the new K/V into ``kv_cache`` IN PLACE at ``cache_positions``
-    (the JAX version returns an updated copy) and returns
-    ``(out, kv_cache)``. Attention goes to ``kernels.ops``:
+    * ``cross_kv`` (k, v) of (B, Sk, Hkv, D): q attends over them (whisper's
+      cross-attention); no rope on q, no cache written; returns
+      ``(out, None)``.
+    * no ``kv_cache``: self-attention over x's own K/V under
+      ``MaskSpec("full")`` (whisper's encoder); returns ``(out, (k, v))``.
+
+    Both run ``attention_full``, plain torch ops as the JAX ``_attn_block``
+    computes them (XLA there, no Pallas kernel). With a cache, the new K/V
+    are written into ``kv_cache`` IN PLACE at ``cache_positions`` (the JAX
+    version returns an updated copy) and ``(out, kv_cache)`` is returned.
+    Attention over a cache goes to ``kernels.ops``:
 
     * "causal" / "chunk": ``chunked_prefill_op`` with ``starts`` = the
       chunk's first position (0 + q_offset for "causal");
@@ -295,17 +311,22 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
     """
     tables = tables or {}
     q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
+    if cross_kv is not None:
+        _refuse_unless_full(mask, "cross-attention")
+        out = attention_full(q, *cross_kv, cfg.attn_softcap)
+        return _out_project(params, out), None
+    k, v = compute_kv(params, x, cfg)
     if rope:
         rot = tables.get("rope") or rope_tables(positions, cfg.head_dim,
                                                 cfg.rope_theta)
         q = rotate(q, rot)
         k = rotate(k, rot)
+    if kv_cache is None:
+        _refuse_unless_full(mask, "attention without a cache")
+        return _out_project(params, attention_full(q, k, v,
+                                                   cfg.attn_softcap)), (k, v)
 
     k_cache, v_cache = kv_cache
     _cache_write(k_cache, k, cache_positions)
@@ -330,11 +351,48 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
                                      softcap=cfg.attn_softcap,
                                      window=mask.window)
     else:
-        raise NotImplementedError(
-            f"mask kind {mask.kind!r} is not ported yet (ROADMAP.md)")
+        raise ValueError(f"mask kind {mask.kind!r} over a KV cache: the "
+                         "cache's kinds are causal, chunk, lengths and ring")
+    return _out_project(params, out), (k_cache, v_cache)
+
+
+def _out_project(params, out: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul over the flattened heads."""
     h, hd, d = params["wo"].shape
-    out = out.reshape(*out.shape[:-2], h * hd) @ params["wo"].reshape(h * hd, d)
-    return out, (k_cache, v_cache)
+    return out.reshape(*out.shape[:-2], h * hd) @ params["wo"].reshape(h * hd, d)
+
+
+def _refuse_unless_full(mask: MaskSpec, what: str) -> None:
+    if mask.kind != "full":
+        raise ValueError(f"{what} takes MaskSpec('full'), got {mask.kind!r}")
+
+
+def compute_kv(params, x: torch.Tensor, cfg: ModelConfig):
+    """The K/V projections (and biases) of x, no rope: whisper's cross-K/V
+    precompute, as the JAX ``compute_kv``."""
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    if cfg.qkv_bias:
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return k, v
+
+
+def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   softcap: Optional[float] = None) -> torch.Tensor:
+    """Bidirectional attention of q (B, Sq, Hq, D) over k, v (B, Sk, Hkv, D)
+    as the JAX ``_attn_block`` computes it under ``MaskSpec("full")``:
+    logits in f32, softmax in f32, the probabilities cast to V's dtype for
+    the product, which accumulates in f32; the output in q's dtype."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, d).float()
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) \
+        * (1.0 / math.sqrt(d))
+    probs = torch.softmax(_soft_cap(logits, softcap), dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(b, sq, hq, d).to(q.dtype)
 
 
 def decode_page_size(max_len: int) -> int:

@@ -163,11 +163,6 @@ def _channel_mix(p, x, last):
     return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1, :]
 
 
-def _layer(tree, i: int):
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
 def _block(bp, x, state, cfg: ModelConfig, seq_mode: str):
     ts_tm, ts_cm, wkv_s = state
     h = L.apply_norm(bp["norm_tm"], x, cfg)
@@ -184,7 +179,7 @@ def _run(params, x, state, cfg: ModelConfig, seq_mode: str):
     layer's state is overwritten in place."""
     names = ("ts_tm", "ts_cm", "wkv")
     for i in range(cfg.num_layers):
-        x, new = _block(_layer(params["blocks"], i), x,
+        x, new = _block(L.layer(params["blocks"], i), x,
                         tuple(state[n][i] for n in names), cfg, seq_mode)
         for n, value in zip(names, new):
             state[n][i].copy_(value)

@@ -139,11 +139,6 @@ def _refuse_ring(cache, entry: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _layer(tree, i: int):
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
 def with_layer_views(params):
     """``params`` plus ``"layers"``: each layer's views of the stacked
     ``blocks``, built once for the params object (a shallow copy; the
@@ -152,7 +147,7 @@ def with_layer_views(params):
     if "layers" in params:
         return params
     n = next(iter(params["blocks"]["attn"].values())).shape[0]
-    return {**params, "layers": [_layer(params["blocks"], i)
+    return {**params, "layers": [L.layer(params["blocks"], i)
                                  for i in range(n)]}
 
 

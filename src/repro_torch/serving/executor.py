@@ -1,12 +1,16 @@
 """Real executors on PyTorch: the clock sources behind the engine.
 
-Counterpart of ``repro/serving/executor.py`` for the families the port
-carries (dense transformers, rwkv6).
+Counterpart of ``repro/serving/executor.py`` for the families it serves:
+dense, moe and vlm transformers, rwkv6 and zamba2 (hybrid). The encdec
+family (whisper) is refused at construction, as the JAX executor cannot
+serve it (``refuse_encdec``).
 
 * ``RealExecutor`` runs the model on one device: a slotted cache (dense:
   ``{"k","v"}`` of shape (L, max_slots, max_len, Hkv, D); rwkv6: the
-  recurrent state with a slot axis 1), chunked prefill into slot rows,
-  batched decode. Iteration durations are measured wall-clock.
+  recurrent state; zamba2: a nested tree of the mamba layers' states and
+  the shared block's K/V; every leaf with its slot on axis 1), chunked
+  prefill into slot rows, batched decode. Iteration durations are measured
+  wall-clock.
 * ``ClusterRealExecutors`` holds one executor per worker; replicas share
   weights and one ``ExecutorKernels``.
 * ``RealTorchBackend`` is the ``ExecutionBackend`` that plugs the cluster
@@ -31,15 +35,16 @@ Two regimes per executor, as in the JAX package:
   (``ExecutorKernels``, the counterpart of the JAX ``jit``s); on the CPU
   the steps run eagerly.
 
-Stateful families (rwkv6) have no positional cache to extend, so they run
+Stateful families (rwkv6, zamba2) have no ``prefill_chunk``, so they run
 the scalar reference under either setting, as in the JAX package: each
 prefill chunk replays the prompt so far on a fresh one-slot state, and a
 migration replays prompt and output on the destination. Their decode runs
-ONLY the batch's slots (their state rows gathered, decoded, written back).
-That is the one intended departure from the JAX executor, whose scalar
-decode steps every slot with token 0 for slots outside the batch: the
-rwkv state of a request whose last prefill chunk rides on another
-request's decode batch then takes in a bogus token (ROADMAP.md, queue 3).
+ONLY the batch's slots (each leaf's batch rows gathered, decoded, written
+back; zamba2's K/V leaves too). That is the one intended departure from
+the JAX executor, whose scalar decode steps every slot with token 0 for
+slots outside the batch: the recurrent state of a request whose last
+prefill chunk rides on another request's decode batch then takes in a
+bogus token (ROADMAP.md, queue 3).
 
 Caches are updated in place (the JAX executor donates its buffers). On a
 CUDA device the attention and the WKV recurrence run in the Hopper kernels.
@@ -106,6 +111,29 @@ def refuse_ring(cfg) -> None:
             "cache (window_sized_cache without scan_layers), as the JAX "
             "executor cannot; serve the full-length cache, or decode a ring "
             "through models.transformer (ROADMAP.md)")
+
+
+def refuse_encdec(cfg) -> None:
+    """The JAX executor cannot serve the encoder-decoder family: its
+    stateful prefill hands ``api.prefill`` a token array, and the encdec
+    branch there reads ``inputs["frames"]`` from it, which fails at the
+    first prefill in both regimes. So it is refused here, not served
+    another way."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the executor does not serve the encdec family, as "
+            "the JAX executor cannot (its prefill passes tokens where "
+            "api.prefill reads inputs['frames']); run whisper through "
+            "models.api's prefill({'frames', 'tokens'}) and decode "
+            "(ROADMAP.md)")
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of tensors, as ``jax.tree.map``
+    (the first tree's structure); the result keeps the structure."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
 
 
 def _upload(arrays: list[np.ndarray], device) -> torch.Tensor:
@@ -339,6 +367,7 @@ class RealExecutor:
                  wid: int = 0, kernels: Optional[ExecutorKernels] = None,
                  owner=None, device=None):
         refuse_ring(cfg)
+        refuse_encdec(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.api = model_api.build(cfg)
@@ -390,12 +419,12 @@ class RealExecutor:
 
     # ----------------------------------------------------------- execution
     def _cache_view(self, slot: int):
-        """The slot's rows as views: writes through them land in the cache."""
-        return {k: a[:, slot:slot + 1] for k, a in self.cache.items()}
+        """The slot's rows of every leaf as views: writes through them land
+        in the cache."""
+        return _tree_map(lambda a: a[:, slot:slot + 1], self.cache)
 
     def _cache_write(self, slot: int, view) -> None:
-        for k, a in self.cache.items():
-            a[:, slot:slot + 1].copy_(view[k])
+        _tree_map(lambda a, v: a[:, slot:slot + 1].copy_(v), self.cache, view)
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr, np.int32)).to(
@@ -449,8 +478,9 @@ class RealExecutor:
 
     def _decode_slots(self, reqs) -> None:
         """Stateful families: decode only the batch's slots. Their rows of
-        every state leaf are gathered, decoded and written back, so a slot
-        outside the batch keeps its state bit for bit."""
+        every state leaf (nested ones included) are gathered, decoded and
+        written back, so a slot outside the batch keeps its state bit for
+        bit."""
         slots = [self._slot(r.rid) for r in reqs]
         tokens = np.asarray([self.generated[r.rid][-1] for r in reqs],
                             np.int32)
@@ -458,10 +488,9 @@ class RealExecutor:
             [np.asarray(slots, np.int32), tokens, self.lengths[slots]],
             self.device)
         idx = idx.long()
-        view = {k: a.index_select(1, idx) for k, a in self.cache.items()}
+        view = _tree_map(lambda a: a.index_select(1, idx), self.cache)
         logits, view = self.api.decode(self.params, view, tok, lengths)
-        for k, a in self.cache.items():
-            a.index_copy_(1, idx, view[k])
+        _tree_map(lambda a, v: a.index_copy_(1, idx, v), self.cache, view)
         host = _to_host(logits.argmax(dim=-1))
         for r, s, t in zip(reqs, slots, host):
             self.generated[r.rid].append(int(t))
@@ -579,6 +608,7 @@ class ClusterRealExecutors:
                  warmup: bool = True, device=None, params=None,
                  seed: int = 0):
         refuse_ring(cfg)
+        refuse_encdec(cfg)
         device = resolve_device(device)
         api = model_api.build(cfg)
         if params is None:

@@ -37,7 +37,7 @@ def _per_layer_run(params, cache, x, cfg, *, positions, mask,
     computes its own rope tables (for q and for k) and block table."""
     for i, window in enumerate(T.layer_windows_py(cfg)):
         x, _ = T._block_fn(
-            T._layer(params["blocks"], i), x, cfg, positions=positions,
+            TL.layer(params["blocks"], i), x, cfg, positions=positions,
             mask=mask, window=window, kv=(cache["k"][i], cache["v"][i]),
             cache_positions=cache_positions, lengths=lengths)
     return x

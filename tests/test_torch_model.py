@@ -59,20 +59,28 @@ def test_configs_match_the_jax_package(arch):
 
 
 def test_unported_archs_raise_naming_the_roadmap():
-    """Every architecture's config resolves (sim mode prices them all);
-    the model API refuses the families without a model yet (hybrid,
-    encdec), naming ROADMAP.md, and builds the moe and vlm families and
-    gemma2's ring cache (each served since its slice)."""
+    """Every architecture's config resolves (sim mode prices them all) and
+    every family builds: hybrid (zamba2) and encdec (whisper) since their
+    slice, moe and vlm and gemma2's ring cache before it. The executors
+    refuse encdec, naming ROADMAP.md, as the JAX executor cannot serve it;
+    an unknown architecture or family still raises."""
     import dataclasses
+    from repro_torch.serving.executor import ClusterRealExecutors
     for arch, family in (("zamba2-2.7b", "hybrid"),
                          ("whisper-medium", "encdec")):
         cfg = get_config(arch)
         assert cfg.family == family
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tapi.build(cfg)
+        api = tapi.build(cfg)
+        assert api.cfg is cfg and api.prefill_chunk is None
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ClusterRealExecutors(get_smoke("whisper-medium"), 1, warmup=False,
+                             device="cpu")
     for arch, family in (("arctic-480b", "moe"), ("kimi-k2-1t", "moe"),
                          ("paligemma-3b", "vlm")):
         assert tapi.build(get_config(arch)).cfg.family == family
+    with pytest.raises(ValueError, match="unknown family"):
+        tapi.build(dataclasses.replace(get_smoke("qwen2-1.5b"),
+                                       family="diffusion"))
     with pytest.raises(ValueError, match="unknown architecture"):
         get_config("llama-9000")
     cfg = dataclasses.replace(get_smoke("gemma2-2b"), scan_layers=False,

@@ -19,6 +19,7 @@ from repro.launch import serve as jserve  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import api as tapi  # noqa: E402
+from repro_torch.serving.executor import refuse_encdec  # noqa: E402
 
 CLASSES = "chat:ttft=1.0,tpot=0.05,weight=2,frac=0.6;batch:scale=8"
 # every architecture of the JAX registry, by the name its launcher takes
@@ -107,8 +108,9 @@ def test_sim_runs_every_architecture_as_jax(arch, capsys):
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_new_configs_match_the_jax_package(arch):
     """CONFIG and SMOKE field by field, dtype by name; the model API
-    builds the moe and vlm families (ported since) and refuses the hybrid
-    and encdec ones, naming ROADMAP.md."""
+    builds every family (moe and vlm, and hybrid and encdec, ported since);
+    the executors refuse encdec, naming ROADMAP.md, as the JAX executor
+    cannot serve it."""
     import jax.numpy as jnp
     for get_t, get_j in ((configs.get_config, jax_config),
                          (configs.get_smoke, jax_smoke)):
@@ -119,12 +121,11 @@ def test_new_configs_match_the_jax_package(arch):
                 assert getattr(t, field) == getattr(j, field), field
         assert str(t.dtype).split(".")[-1] == jnp.dtype(j.dtype).name
         assert t.family in ("moe", "vlm", "hybrid", "encdec")
-        if t.family in ("moe", "vlm"):
-            assert tapi.build(t).cfg is t
-            continue
-        with pytest.raises(NotImplementedError,
-                           match=rf"{t.family}.*ROADMAP\.md"):
-            tapi.build(t)
+        assert tapi.build(t).cfg is t
+        if t.family == "encdec":
+            with pytest.raises(NotImplementedError,
+                               match=rf"{t.family}.*ROADMAP\.md"):
+                refuse_encdec(t)
 
 
 def test_sim_mode_touches_no_device(monkeypatch, capsys):
