@@ -6,11 +6,13 @@ Phases (one line each, a non-zero exit on any failure):
   device    card name and power limit (nvidia-smi), torch and CUDA versions
   build     nvcc builds the three CUDA libraries from
             src/repro_torch/kernels/csrc, one nvcc each, all at once, and
-            prints ptxas's registers and spills for every device kernel
+            prints ptxas's registers and spills for every device kernel;
+            fails if a tensor-core instance spills
   kernels   each kernel against its plain PyTorch version on the card,
             every case checked to run the device kernel variant the
             library picks for it (prefill and decode attention: tensor
-            cores for bf16 at D = 64/128/256, CUDA cores for f32, the rule
+            cores for bf16 at D = 64/80/128/256, CUDA cores for f32 and for
+            bf16 at a head dim outside the set (D = 96, G = 1), the rule
             held against each library's C function; wkv6: decode for
             T = 1); prefill cases at D = 256 whose key tiles split across
             clusters of 1, 2 and 4 blocks (the launcher's split count held
@@ -23,9 +25,10 @@ Phases (one line each, a non-zero exit on any failure):
             arctic's G = 7 and kimi's G = 8 (D = 128) and paligemma's G = 8
             at D = 256 over one KV head, prefill at arctic's G = 7 and at
             paligemma's 1088-token prefix from 0; zamba2's shared block
-            (32 query over 32 KV heads of 80: the CUDA-core variants in
-            bf16 too) in prefill (2 rows of 256 at 0 and 384) and decode
-            (8 slots at 64..512, one slot at 1000)
+            (32 query over 32 KV heads of 80, on the tensor cores in bf16)
+            in prefill (2 rows of 256 at 0 and 384) and decode (8 slots at
+            64..512, one slot at 1000), and D = 80 at G = 4 (prefill) and
+            G = 16 (decode)
             (attention: bf16 rtol = atol = 2e-2, f32 1e-4, sums run in
             another order; wkv6 against the sequential scan, bf16 and f32
             inputs alike: out rtol = atol = 3e-4, state rtol 3e-4 atol 3e-3,
@@ -35,7 +38,9 @@ Phases (one line each, a non-zero exit on any failure):
             e4m3 cases across the edges of the kernels' rings of raw e4m3
             tiles (zero-filled rows past Smax or a split, D = 64, 16-token
             shuffled pages with holes, window floors inside a tile,
-            gemma2's prefill split over 4, 2 and 1 blocks); then timed
+            gemma2's prefill split over 4, 2 and 1 blocks; each again at
+            D = 80, whose rows of 5 raw chunks do not divide a pass); then
+            timed
             against the plain version, its bound
             and, for attention, torch's scaled_dot_product_attention on the
             same work (``time_ms``: the card sleeps before each timed call,
@@ -66,7 +71,7 @@ Phases (one line each, a non-zero exit on any failure):
             attention block after every 6), bf16: two rows' prompts of 512
             tokens (the SSD's chunked form) and of 500 (the scan's function)
             prefilled, then 16 decode steps each, through the kernels (the
-            CUDA-core variants only, every call shadowed) and the plain
+            tensor-core variants only, every call shadowed) and the plain
             attention, logits compared; parameters, weight and state bytes
   model_whisper  full-width whisper-medium (24 + 24 layers), bf16: two rows
             of 1500 seeded frame embeddings and a 64-token prompt
@@ -144,13 +149,14 @@ Phases (one line each, a non-zero exit on any failure):
             (varied as the fp8 phases vary the cache), the MoE main path
   serve_vlm  the same on paligemma-3b, text only (the VLM main path)
   serve_zamba2  the same on zamba2-2.7b (the hybrid main path: both
-            attention kernels' CUDA-core bf16 instances and no other)
+            attention kernels' tensor-core bf16 instances at D = 80 and no
+            other)
 Each phase prints its seconds. Each serve phase zeroes the kernels' launch counts just before it and reads
 them just after, per device kernel variant too (a CUDA graph replay adds
 what its capture counted): the dense paths must launch the tensor-core
 prefill and decode kernels, the gemma2 paths too (head_dim 256), the fp8
 paths their e4m3 instances and no other; the rwkv path both wkv6 kernels;
-the zamba2 path both attention kernels' CUDA-core instances (D = 80).
+the zamba2 path both attention kernels' tensor-core instances (D = 80).
 The transformer paths' steps (dense, MoE, VLM) are CUDA graph replays.
 
 The last lines are the kernels' JSON record, the run's seconds, the
@@ -245,8 +251,8 @@ VLM_TEXT = 64
 VLM_SEQ = 1024 + VLM_TEXT
 VLM_LEN = 1152
 # the hybrid and encdec paths (full width and depth): zamba2's shared
-# attention block, 32 query over 32 KV heads of 80 (G = 1; D = 80 runs the
-# CUDA-core variants in bf16 too), and whisper's decoder, 16 heads of 64
+# attention block, 32 query over 32 KV heads of 80 (G = 1; bf16 at D = 80
+# runs the tensor-core variants), and whisper's decoder, 16 heads of 64
 ZAMBA2 = "zamba2-2.7b"
 WHISPER = "whisper-medium"
 ZAMBA2_HEADS = dict(hq=32, hkv=32, d=80)
@@ -361,6 +367,10 @@ def phase_build() -> None:
             elif "registers" in line:
                 say("build", kernel=f"{lib.source.name}:{name}",
                     ptxas=repr(line.split(":", 1)[1].strip() + "; " + spill))
+                spilled = [int(n) for n in re.findall(
+                    r"(\d+) bytes spill (?:stores|loads)", spill)]
+                check("_mma_kernel<" not in name or not any(spilled),
+                      f"build: {name} spills ({spill})")
 
 
 def _rand(gen, shape, dtype):
@@ -636,6 +646,12 @@ PREFILL_SPLITS = {
     (8, 256, 8, 1, 256, 1024, None): 1,
     # D = 128 never splits
     (2, 256, 12, 2, 128, 1024, None): 1,
+    # nor does zamba2's D = 80 (G = 1): the kernels phase's and the timed
+    # 2 rows of 256, a serve iteration's row of 256, model_zamba2's prompts
+    (2, 256, 32, 32, 80, 1024, None): 1,
+    (1, 256, 32, 32, 80, 1024, None): 1,
+    (2, 512, 32, 32, 80, 1024, None): 1,
+    (2, 500, 32, 32, 80, 1024, None): 1,
 }
 
 
@@ -662,10 +678,12 @@ E4M3_PREFILL_SPLITS = {"e4m3_gemma2_splits4": 4, "e4m3_gemma2_splits2": 2,
 def _e4m3_prefill_edges(gen) -> dict:
     """Prefill cases (bf16 q, e4m3 K/V) across the edges of the e4m3 ring
     of raw tiles: a causal frontier at a ragged Smax, so zero-filled rows
-    land in a staged tile; D = 64 (four 16-byte copies a row); a window
-    floor inside a staged tile at D = 64, 128 and 256; gemma2's D = 256
-    serving shapes whose key tiles split over clusters of 4, 2 and 1
-    blocks (``E4M3_PREFILL_SPLITS``)."""
+    land in a staged tile, at D = 128 and 80; D = 64 (four 16-byte copies
+    a row); a window floor inside a staged tile at D = 64, 80, 128 and
+    256; gemma2's D = 256 serving shapes whose key tiles split over
+    clusters of 4, 2 and 1 blocks (``E4M3_PREFILL_SPLITS``). At D = 80 a
+    row is 5 raw chunks: a tile's 320 take 2.5 copy passes and 5
+    widening passes with the column changing from pass to pass."""
     pc = functools.partial(_prefill_case, gen, dtype=torch.bfloat16, kv=E4M3)
     gemma2 = dict(hq=8, hkv=4, d=256, softcap=50.0, window=4096)
     return {
@@ -682,15 +700,20 @@ def _e4m3_prefill_edges(gen) -> dict:
         "e4m3_gemma2_splits2": pc(1, 1024, GEMMA2_LEN, starts=[3000],
                                   **gemma2),
         "e4m3_gemma2_splits1": pc(8, 256, MAX_LEN, **gemma2),
+        "e4m3_d80_frontier_smax999": pc(2, 70, 999, starts=[929, 100],
+                                        **ZAMBA2_HEADS),
+        "e4m3_d80_g1_window50": pc(1, 64, 700, starts=[636], window=50,
+                                   hq=4, hkv=4, d=80),
     }
 
 
 def _e4m3_decode_edges(gen) -> dict:
     """Decode cases (bf16 q, e4m3 K/V) across the edges of each warp's
-    e4m3 ring: splits that end mid-tile at the length (zero-filled rows);
-    D = 64 at G = 6 and G = 16; 16-token shuffled pages with -1 holes at
-    D = 128 and 256; window floors inside a staged tile (the per-row
-    address path) at D = 128 and 256."""
+    e4m3 ring: splits that end mid-tile at the length (zero-filled rows),
+    at D = 128 and 80; D = 64 at G = 6 and G = 16; 16-token shuffled pages
+    with -1 holes at D = 80, 128 and 256; window floors inside a staged
+    tile (the per-row address path) at D = 80, 128 and 256. At D = 80 a
+    tile's 80 raw chunks take 2.5 copy passes of a warp."""
     dc = functools.partial(_decode_case, gen, dtype=torch.bfloat16, kv=E4M3)
     return {
         "e4m3_lengths_mid_tile": dc(4, MAX_LEN, lengths=[17, 100, 333, 1000]),
@@ -706,6 +729,14 @@ def _e4m3_decode_edges(gen) -> dict:
         "e4m3_d256_window250_floor_mid_tile": dc(
             2, MAX_LEN, lengths=[300, 1000], hq=8, hkv=4, d=256, window=250,
             softcap=50.0),
+        "e4m3_d80_lengths_mid_tile": dc(
+            4, MAX_LEN, lengths=[17, 100, 333, 1000], hq=4, hkv=4, d=80),
+        "e4m3_d80_page16_shuffled_holes": dc(
+            3, 400, shuffle=True, ps=16, holes=True, lengths=[15, 177, 399],
+            hq=4, hkv=4, d=80),
+        "e4m3_d80_window100_floor_mid_tile": dc(
+            4, MAX_LEN, lengths=[150, 333, 700, 1024], window=100, hq=4,
+            hkv=4, d=80),
     }
 
 
@@ -767,10 +798,14 @@ def phase_kernels(card: str) -> dict:
             "paligemma_prefix_g8_d256_hkv1": pc(
                 gen, 2, VLM_SEQ, VLM_LEN, dtype, starts=[0, 0],
                 **PALIGEMMA_HEADS),
-            # zamba2's shared block: G = 1 at D = 80 (32 query rows a block
-            # on the CUDA-core variant, whatever the dtype)
+            # zamba2's shared block: G = 1 at D = 80 (64 queries a block on
+            # the tensor cores in bf16), and D = 80 at G = 4
             "zamba2_d80_g1_sq256": pc(gen, 2, 256, MAX_LEN, dtype,
                                       starts=[0, 384], **ZAMBA2_HEADS),
+            "d80_g4_sq37": pc(gen, 2, 37, 160, dtype, hq=16, hkv=4, d=80),
+            # bf16 at a head dim outside TENSOR_CORE_HEAD_DIMS: the
+            # CUDA-core kernel's bf16 instances
+            "d96_g1_sq100": pc(gen, 2, 100, 512, dtype, hq=4, hkv=4, d=96),
         }
         if kv is not None and dtype == torch.bfloat16:
             cases |= _e4m3_prefill_edges(gen)
@@ -836,6 +871,11 @@ def phase_kernels(card: str) -> dict:
                                        **ZAMBA2_HEADS),
             "zamba2_d80_g1_one_slot_len1000": dc(
                 gen, 1, MAX_LEN, dtype, lengths=[1000], **ZAMBA2_HEADS),
+            # D = 80 at G = 16 (two n-tiles), and bf16 at D = 96 (outside
+            # TENSOR_CORE_HEAD_DIMS: the CUDA-core kernel's bf16 instances)
+            "d80_g16": dc(gen, 2, 512, dtype, hq=32, hkv=2, d=80),
+            "d96_g1": dc(gen, 4, 512, dtype, hq=4, hkv=4, d=96,
+                         lengths=[1, 17, 250, 511]),
         }
         if kv is not None and dtype == torch.bfloat16:
             cases |= _e4m3_decode_edges(gen)
@@ -912,7 +952,7 @@ def phase_kernels(card: str) -> dict:
         "chunked_prefill_paligemma",
         f"rows=2 Sq={VLM_SEQ} Smax={VLM_LEN} starts=[0,0] Hq=8 Hkv=1 D=256 "
         "bf16", pargs, pkw)
-    # zamba2's shared attention (the CUDA-core variants at D = 80) and
+    # zamba2's shared attention (the tensor-core variants at D = 80) and
     # whisper's decoder decode (tensor cores at D = 64), K/V in bf16 as
     # their paths keep them
     pargs, pkw = _prefill_case(gen, 2, 256, MAX_LEN, dtype, starts=[0, 384],
@@ -1611,9 +1651,10 @@ def phase_model_zamba2() -> None:
     """Full-width zamba2-2.7b (54 mamba2 blocks and the shared attention
     block after every 6, bf16, weights from a seed): two rows' prompts of
     512 tokens (the SSD's chunked form) and of 500 (the scan's function)
-    prefilled, then 16 decode steps each, through the kernels (the CUDA-core
-    variants only, D = 80; every attention call shadowed by the plain version
-    on its live inputs) and, teacher-forced, through the plain attention;
+    prefilled, then 16 decode steps each, through the kernels (the
+    tensor-core variants only, D = 80; every attention call shadowed by the
+    plain version on its live inputs) and, teacher-forced, through the plain
+    attention;
     the logits of every step compared, the SSD states' difference printed,
     and the kernel runs' launches per variant (counts zeroed just before
     them)."""
@@ -1628,7 +1669,7 @@ def phase_model_zamba2() -> None:
             prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, t)),
                                      dtype=torch.int32, device=DEV)
             n = torch.full((2,), t, dtype=torch.int32, device=DEV)
-            _expect_variant("cuda_core", lambda: runs.append(
+            _expect_variant("tensor_core", lambda: runs.append(
                 (prompt, n) + _generate(api, params, api.init_cache(
                     2, MAX_LEN, DEV), prompt, n, ZAMBA2_STEPS)),
                 chunked_prefill, paged_attention)
@@ -2927,7 +2968,6 @@ def main() -> None:
                  "paged_attention": paged_attention}
     tensor_cores = dict.fromkeys(attention, ("tensor_core",))
     tensor_cores_e4m3 = dict.fromkeys(attention, ("tensor_core_e4m3",))
-    cuda_cores = dict.fromkeys(attention, ("cuda_core",))
     serves = (
         ("serve", ARCH, attention, tensor_cores),
         ("serve_rwkv", RWKV, {"wkv6": wkv6}, {"wkv6": ("chunk", "decode")}),
@@ -2936,7 +2976,7 @@ def main() -> None:
         ("serve_gemma2_fp8", GEMMA2, attention, tensor_cores_e4m3, fp8),
         ("serve_moe", ARCTIC, attention, tensor_cores, MOE_CUTS[ARCTIC]),
         ("serve_vlm", PALIGEMMA, attention, tensor_cores),
-        ("serve_zamba2", ZAMBA2, attention, cuda_cores))
+        ("serve_zamba2", ZAMBA2, attention, tensor_cores))
     launches = {"model_ring": ring_launches, "paged_store": store_launches,
                 "model_vlm": vlm_launches, "model_whisper": whisper_launches}
     for phase, *args in serves:
@@ -2969,13 +3009,13 @@ def main() -> None:
                                            "paged_attention.tensor_core"),
              "chunked_prefill_paligemma": ("model_vlm",
                                            "chunked_prefill.tensor_core")}
-    # zamba2's shared attention on its serve path (the CUDA-core variants
-    # at D = 80); whisper's decoder decode in model_whisper (the executors
-    # refuse encdec, as the JAX executor cannot serve it)
+    # zamba2's shared attention on its serve path (the tensor-core
+    # variants at D = 80); whisper's decoder decode in model_whisper (the
+    # executors refuse encdec, as the JAX executor cannot serve it)
     main |= {"chunked_prefill_zamba2": ("serve_zamba2",
-                                        "chunked_prefill.cuda_core"),
+                                        "chunked_prefill.tensor_core"),
              "paged_attention_zamba2": ("serve_zamba2",
-                                        "paged_attention.cuda_core"),
+                                        "paged_attention.tensor_core"),
              "paged_attention_whisper": ("model_whisper",
                                          "paged_attention.tensor_core")}
     kernels = []

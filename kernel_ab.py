@@ -9,8 +9,11 @@ that tree's ``chip_smoke.py``, replaces its ``time_ms`` with this tree's
 (the function's source and nothing else), and runs its device, build and
 kernels phases; then it times, with this tree's ``_time_decode`` on that
 tree's decode kernel, each of this tree's ``DECODE_TIMED`` shapes that the
-tree's own kernels phase did not time. Prints each run's ``timed=`` lines,
-then one JSON line: per timed shape, each tree's two times and the ratio
+tree's own kernels phase did not time, and each ``PROBE_DECODE`` shape.
+Both trees' kernels phases time zamba2's D = 80 rows
+(``chunked_prefill_zamba2``, ``paged_attention_zamba2``). Prints each
+run's ``timed=`` lines, then one JSON line: per timed shape, each tree's
+two times and the ratio
 of their medians (this / other). Exits non-zero if any run fails.
 """
 from __future__ import annotations
@@ -38,7 +41,18 @@ gen = c.torch.Generator(device=c.DEV).manual_seed(1)
 for key, lengths, shape in c.DECODE_TIMED:
     if shape not in have:
         c._say_timed(c._time_decode(gen, key, lengths, shape), card)
+for key, lengths, shape, heads in {probe!r}:
+    c._say_timed(c._time_decode(gen, key, lengths, shape, **heads), card)
 """
+# decode shapes timed on both trees beside the kernels phases': zamba2's
+# step of 8 slots with 16 query heads a KV head (Hq = 512 over its 32): the
+# same K/V bytes as its G = 1, sixteen times the products, so a kernel whose
+# time does not follow G spends it on rows G does not fill
+PROBE_DECODE = (
+    ("paged_attention_zamba2_g16", (300, 420, 96, 512, 280, 333, 64, 450),
+     "slots=8 max_len=1024 page=64 lengths~300 Hq=512 Hkv=32 D=80 bf16",
+     dict(hq=512, hkv=32, d=80)),
+)
 SHARED = ("time_ms", "DECODE_TIMED", "_time_decode", "_decode_record",
           "_say_timed")
 
@@ -57,7 +71,8 @@ def run(root: Path) -> dict:
     """One tree's kernels phase: {shape: (name, ms)}."""
     proc = subprocess.run(
         [sys.executable, "-c", CHILD.format(root=str(root),
-                                            timer=timer_source())],
+                                            timer=timer_source(),
+                                            probe=PROBE_DECODE)],
         cwd=root, capture_output=True, text=True)
     if proc.returncode != 0:
         sys.exit(f"kernel_ab: the run in {root} failed\n"

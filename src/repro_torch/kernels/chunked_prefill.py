@@ -48,7 +48,7 @@ KERNELS = {"cuda_core": "chunked_prefill_kernel",
            "tensor_core_e4m3": "chunked_prefill_mma_kernel"}
 _VARIANTS = ("cuda_core", "tensor_core")   # chunked_prefill_variant's codes
 # head dims whose bf16 inputs go to the tensor-core kernel
-TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
+TENSOR_CORE_HEAD_DIMS = (64, 80, 128, 256)
 
 launches = 0
 launches_by_variant = dict.fromkeys(KERNELS, 0)

@@ -52,6 +52,24 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
 }
 
+// Row and column of chunk t + j * THREADS of a tile of rows of CH 16-byte
+// chunks: thread t's chunk in pass j of a copy over the tile. Where
+// THREADS is a multiple of CH (D = 64, 128, 256) the thread keeps column
+// t % CH and its row steps by THREADS / CH, written out so that the
+// column is one register and each pass adds an immediate (computed from
+// the index, the D = 256 decode kernel took 231 registers instead of 164
+// and was 1.04-1.06x slower); at D = 80 (CH = 10, or 5 raw e4m3 chunks)
+// both change from pass to pass.
+template <int CH, int THREADS>
+__device__ __forceinline__ int2 pass_chunk(int t, int j) {
+  if constexpr (THREADS % CH == 0) {
+    return make_int2(t / CH + j * (THREADS / CH), t % CH);
+  } else {
+    const int idx = t + j * THREADS;
+    return make_int2(idx / CH, idx % CH);
+  }
+}
+
 // ------------------------------------------------- fp8 (e4m3) K/V
 
 using e4m3 = __nv_fp8_e4m3;
@@ -95,24 +113,31 @@ __device__ __forceinline__ uint4 widen_e4m3<float>(const e4m3* src) {
 // The tensor-core kernels' e4m3 stage: ROWS rows of D e4m3 values that
 // cp.async has landed in shared memory (row after row, unpadded) widened
 // into bf16 rows of `stride` elements, the layout their ldmatrix reads.
-// Thread t of THREADS widens 16-byte chunks t, t + THREADS, ... (THREADS a
-// multiple of D / 16, so its column c stays put): one 16-byte load, 16
-// exact widenings, two 16-byte stores, the half at byte 16 first when
-// c & 4, so that the eight stores of a quarter-warp fall in distinct banks.
+// Thread t of THREADS widens 16-byte chunks t, t + THREADS, ..., chunk idx
+// being column c = idx % CR of row idx / CR (CR = D / 16; at D = 64, 128
+// and 256 THREADS is a multiple of CR and c stays put): one 16-byte load,
+// 16 exact widenings, two 16-byte stores. The half at byte 16 goes first
+// when c & 4, so that the eight stores of a quarter-warp fall in distinct
+// banks. At D = 80 (CR = 5) a row is 11 16-byte units, so some eight
+// consecutive chunks cover one bank group three times and no order avoids
+// a conflict; there the half at byte 16 goes first when (row + c) & 4:
+// every 40 chunks then take 14 store wavefronts (10 without conflicts, 18
+// in order, 19 under c & 4), the fewest any choice of halves allows.
 template <int D, int ROWS, int THREADS>
 __device__ __forceinline__ void widen_rows_e4m3(const e4m3* src, __nv_bfloat16* dst,
                                                 int stride, int t) {
   constexpr int CR = D / 16;
-  static_assert(THREADS % CR == 0 && ROWS * CR % THREADS == 0, "whole rows a pass");
-  const int c = t % CR;
-  const bool swap = (c & 4) != 0;
+  static_assert(ROWS * CR % THREADS == 0, "whole passes");
 #pragma unroll
   for (int j = 0; j < ROWS * CR / THREADS; ++j) {
     const int idx = t + j * THREADS;
+    const int2 rc = pass_chunk<CR, THREADS>(t, j);
+    const int row = rc.x, c = rc.y;
+    const bool swap = (((CR % 2 != 0) ? row + c : c) & 4) != 0;
     const uint4 x = reinterpret_cast<const uint4*>(src)[idx];
     const uint32_t a0 = swap ? x.z : x.x, a1 = swap ? x.w : x.y;
     const uint32_t b0 = swap ? x.x : x.z, b1 = swap ? x.y : x.w;
-    uint4* out = reinterpret_cast<uint4*>(dst + (idx / CR) * stride + c * 16);
+    uint4* out = reinterpret_cast<uint4*>(dst + row * stride + c * 16);
     out[swap ? 1 : 0] = make_uint4(e4m3x2_to_bf16x2(a0), e4m3x2_to_bf16x2(a0 >> 16),
                                    e4m3x2_to_bf16x2(a1), e4m3x2_to_bf16x2(a1 >> 16));
     out[swap ? 0 : 1] = make_uint4(e4m3x2_to_bf16x2(b0), e4m3x2_to_bf16x2(b0 >> 16),

@@ -8,21 +8,24 @@
 // when a window is set; optional softcap; GQA folded in.
 //
 // Bound on this card: at the executor's shapes (D = 128, G = 6 query heads
-// per KV head, or D = 256, G = 2; chunks of 32..1024 tokens) the work is
-// 4*D*Hq FLOPs per (query, attended key) pair against 2*D bytes per key and
-// head, so long chunks are bound by operations and short ones over a long
-// prefix by the bytes of K and V.
+// per KV head, D = 256, G = 2, or zamba2's D = 80, G = 1; chunks of
+// 32..1024 tokens) the work is 4*D*Hq FLOPs per (query, attended key) pair
+// against 2*D bytes per key and head, so long chunks are bound by
+// operations and short ones over a long prefix (and zamba2's 256-token
+// chunks, one query head a KV head) by the bytes of K and V.
 //
 // Two variants; the launcher picks one from (dtype, D) alone
 // (`chunked_prefill_variant`), never because the other failed.
 //
-// * `chunked_prefill_mma_kernel`, bf16 at D = 64, 128 or 256 (every config
-//   of the port): flash attention 2 on the tensor cores. A block of 4 warps
-//   holds 64 (query, head) rows of one KV head, row = i*G + g (G = 6: 10
-//   queries and 4 pad rows; gemma2's G = 2: 32 queries); each warp owns 16
-//   rows. Q is staged once in shared memory; K/V tiles come through a
-//   2-stage cp.async ring (the next tile loads while this one is used),
-//   rows padded by 16 bytes so that ldmatrix reads fall in distinct banks.
+// * `chunked_prefill_mma_kernel`, bf16 at D = 64, 80, 128 or 256 (every
+//   config of the port): flash attention 2 on the tensor cores. A block of 4
+//   warps holds 64 (query, head) rows of one KV head, row = i*G + g (G = 6:
+//   10 queries and 4 pad rows; gemma2's G = 2: 32 queries; zamba2's G = 1 at
+//   D = 80: 64); each warp owns 16 rows. Q is staged once in shared
+//   memory; K/V tiles come through a 2-stage cp.async ring (the next tile
+//   loads while this one is used), rows padded by 16 bytes so that ldmatrix
+//   reads fall in distinct banks (at D = 80 a row is 176 B, 11 16-byte
+//   units: the eight rows of an ldmatrix still start in distinct groups).
 //   S = Q K^T and O += P V are mma.sync.m16n8k16 (bf16 operands, f32
 //   accumulation); the online softmax runs in f32 on the accumulator
 //   registers, softcap before the mask, and a masked key gets weight 0; P
@@ -30,9 +33,11 @@
 //   What D = 256 changes (32-key tiles, Q read from shared memory, key
 //   tiles split across a cluster whose blocks merge their (m, l, O)
 //   partials through distributed shared memory, as the decode kernel does)
-//   is set out at `MmaPlan`. wgmma (64-row warpgroup tiles, B from shared
-//   memory) and TMA are the next step.
-// * `chunked_prefill_kernel`, f32 inputs and other head dims: CUDA-core f32
+//   is set out at `MmaPlan`. D = 80 = 5 x 16 is tiled by m16n8k16 exactly
+//   (5 k-steps, 10 output n-tiles, no padded columns). wgmma (64-row
+//   warpgroup tiles, B from shared memory) and TMA are the next step.
+// * `chunked_prefill_kernel`, f32 inputs and other head dims (bf16 at
+//   D = 96, say, which no config of the port has): CUDA-core f32
 //   products (the f32 path is held at 1e-4, which bf16 tensor-core operands
 //   could not meet). A block of 4 warps holds bq*G query rows in shared
 //   memory (f32); each warp owns up to 16 of them and scores 32-key tiles,
@@ -198,7 +203,7 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(rt::kFull, v, 2);
 }
 
-// What the head dim changes. D = 64/128: 64-key tiles, Q's A fragments
+// What the head dim changes. D = 64/80/128: 64-key tiles, Q's A fragments
 // in registers, one block per q-block. At D = 256 ("wide") the O
 // accumulator alone is 128 f32 registers a thread, so:
 // * tiles of 32 keys (16 score registers; Q and the ring take 101,376 B,
@@ -210,7 +215,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 // * a tile inside every row's causal range and window skips the mask, and
 //   each thread copies its rows from one precomputed address. At D = 128
 //   the first, beside the softcap below, made the kernel 1.08-1.10x
-//   slower, and the second 1.04x (PERF.md §6), so D = 64/128 keep the
+//   slower, and the second 1.04x (PERF.md §6), so D = 64/80/128 keep the
 //   masked tile and the strided copy.
 // At every D a tile costs about as many CUDA-core instructions as
 // tensor-core ones, so a tile that raises no row's max skips the
@@ -349,21 +354,26 @@ chunked_prefill_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kc
       }
     }
   };
-  // e4m3: thread t copies 16-byte chunk t % CR (16 values) of rows t / CR,
-  // + RR, ... of a raw tile, zeros past smax
+  // e4m3: thread t copies 16-byte chunks (16 values) t, t + 128, ... of a
+  // raw tile's K * CR, chunk idx being column idx % CR of row idx / CR (at
+  // byte 16 * idx: raw rows are unpadded), zeros past smax; at D = 80 (CR =
+  // 5) the 320 chunks take 2.5 passes, so the last is guarded
   constexpr int CR = D / 16;
-  constexpr int RR = kMmaWarps * rt::kWarp / CR;
-  const size_t raw_base = (static_cast<size_t>(b) * smax * hkv + h) * D + (tid % CR) * 16;
+  constexpr int THREADS = kMmaWarps * rt::kWarp;
+  const size_t raw_base = (static_cast<size_t>(b) * smax * hkv + h) * D;
   auto load_raw = [&](int stage, int kt) {
-    rt::e4m3* kd = raw + stage * 2 * K * D + (tid % CR) * 16;
+    rt::e4m3* kd = raw + stage * 2 * K * D;
     rt::e4m3* vd = kd + K * D;
 #pragma unroll
-    for (int j = 0; j < K / RR; ++j) {
-      const int row = tid / CR + j * RR;
+    for (int j = 0; j < (K * CR + THREADS - 1) / THREADS; ++j) {
+      const int idx = tid + j * THREADS;
+      if (K * CR % THREADS != 0 && idx >= K * CR) break;
+      const int2 rc = rt::pass_chunk<CR, THREADS>(tid, j);
+      const int row = rc.x, c = rc.y;
       const bool in = kt + row < smax;
-      const size_t off = raw_base + (in ? kt + row : 0) * kv_row;
-      rt::cp_async16(kd + row * D, kc + off, in);
-      rt::cp_async16(vd + row * D, vc + off, in);
+      const size_t off = raw_base + c * 16 + (in ? kt + row : 0) * kv_row;
+      rt::cp_async16(kd + idx * 16, kc + off, in);
+      rt::cp_async16(vd + idx * 16, vc + off, in);
     }
   };
   if constexpr (E) {
@@ -649,7 +659,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
 
 // 1 when (dtype, d) goes to the tensor-core kernel, 0 for the CUDA-core one.
 extern "C" int chunked_prefill_variant(int d, int dtype) {
-  return dtype == 1 && (d == 64 || d == 128 || d == 256);
+  return dtype == 1 && (d == 64 || d == 80 || d == 128 || d == 256);
 }
 
 // Blocks of a cluster that split each q-block's key tiles. At D = 256 (the
@@ -681,6 +691,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* st
   const int ncp = rt::col_pairs(d);
   if (chunked_prefill_variant(d, dtype)) {
     if (d == 64) return launch_mma<64, KB>(q, k, v, starts, out, b, sq, hq, hkv, smax, softcap, window, splits, s);
+    if (d == 80) return launch_mma<80, KB>(q, k, v, starts, out, b, sq, hq, hkv, smax, softcap, window, splits, s);
     if (d == 128) return launch_mma<128, KB>(q, k, v, starts, out, b, sq, hq, hkv, smax, softcap, window, splits, s);
     return launch_mma<256, KB>(q, k, v, starts, out, b, sq, hq, hkv, smax, softcap, window, splits, s);
   }

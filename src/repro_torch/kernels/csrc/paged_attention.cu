@@ -55,8 +55,8 @@
 // Two variants of the block's arithmetic; the launcher picks one from
 // (dtype, D) alone (`paged_attention_variant`), never because the other
 // failed.
-// * `paged_attention_mma_kernel`, bf16 at D = 64, 128 or 256 (every config
-//   of the port): tensor cores with the keys on M and the query heads on N
+// * `paged_attention_mma_kernel`, bf16 at D = 64, 80, 128 or 256 (every
+//   config of the port): tensor cores with the keys on M and the query heads on N
 //   ("swap AB"), so G = 6 pads to 8 columns, not 16 rows, and G <= 16
 //   takes two n-tiles (at D = 256 G <= 8, one n-tile: the O^T accumulator
 //   is then 64 f32 registers a thread, as at D = 128 with two n-tiles, and
@@ -66,11 +66,16 @@
 //   registers), the online softmax in f32 down each column (one query head),
 //   then O^T += V^T P^T with P rounded to bf16 (as the prefill kernel rounds
 //   it): movmatrix turns the score accumulator into the B operand in
-//   registers, and ldmatrix.trans reads V^T from the ring.
-// * `paged_attention_kernel`, f32 inputs and other head dims: CUDA-core f32
-//   products (the f32 path is held at 1e-4): a warp tile is 32 keys, lane c
-//   scores key c for the G query rows (rt::WarpState), 1-4 warps as shared
-//   memory allows.
+//   registers, and ldmatrix.trans reads V^T from the ring. D = 80 (zamba2,
+//   G = 1 over 256 (b, kv-head) pairs, so S = 1) is 5 k-steps and 5 O^T
+//   row tiles, no padding: Q^T's odd last k-step comes by ldmatrix.x2, and
+//   each tile's 16 rows of 10 chunks are 5 whole copy passes of 32 lanes.
+// * `paged_attention_kernel`, f32 inputs and other head dims (bf16 at
+//   D = 96, say, which no config of the port has): CUDA-core f32 products
+//   (the f32 path is held at 1e-4): a warp tile is 32 keys, lane c scores
+//   key c for all R = 8 or 16 rows of rt::WarpState whatever G is (at
+//   G = 1, 16 times the products a key needs), 1-4 warps as shared memory
+//   allows.
 //
 // K/V pages may be fp8 e4m3 (an fp8 KV cache) with q in bf16 or f32; the
 // variant still follows q's dtype, and the products stay bf16 (or f32)
@@ -341,47 +346,58 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp
   rt::e4m3* raw = reinterpret_cast<rt::e4m3*>(ring + 2 * TILE);   // e4m3: after the pair
   constexpr int RAW = kMmaKeys * D;                                 // bytes of a raw tile
   auto tile_start = [&](int i) { return rg.lo + (warp + i * kWarps) * kMmaKeys; };
-  // Lane l copies 16-byte chunk l % CH of rows l / CH, + RP, ... (a warp
-  // instruction covers whole rows). With one warp per scheduler the address
-  // arithmetic is on the critical path, so when pages and the split start
-  // are multiples of the tile (every page size the executor uses), a
-  // tile's rows lie in one page: one table read a tile, then one add a row.
-  constexpr int RP = rt::kWarp / CH;
-  const int c = lane % CH, r0 = lane / CH;
+  // Lane l copies 16-byte chunks l, l + 32, ... of the tile's kMmaKeys * CH,
+  // chunk idx being column idx % CH of row idx / CH. At D = 64/128/256 a
+  // lane keeps its column c0, added once a tile to the ring and page
+  // addresses; at D = 80 (160 chunks, 5 whole passes) the column changes
+  // from pass to pass and is added per copy. With one warp per scheduler
+  // the address arithmetic is on the critical path, so when pages and the
+  // split start are multiples of the tile (every page size the executor
+  // uses), a tile's rows lie in one page: one table read a tile, then one
+  // add a row (a form that added the column per copy at every D made
+  // gemma2's D = 256 decode 1.02-1.05x slower).
+  static_assert(kMmaKeys * CH % rt::kWarp == 0, "whole copy passes");
   const bool one_page = ps % kMmaKeys == 0 && rg.lo % kMmaKeys == 0;
   const size_t row_step = static_cast<size_t>(hkv) * D;
+  const int c0 = rt::kWarp % CH == 0 ? lane % CH : 0;
   auto load_tile = [&](int i) {  // this warp's i-th tile into stage i % kStages
     const int k0 = tile_start(i);
-    bf16* kd = ring + (i % kStages) * 2 * TILE + c * 8;
+    bf16* kd = ring + (i % kStages) * 2 * TILE + c0 * 8;
     bf16* vd = kd + TILE;
-    const size_t base = one_page ? token_offset(table, k0, ps, hkv, h, D) + c * 8 : 0;
+    const size_t base = one_page ? token_offset(table, k0, ps, hkv, h, D) + c0 * 8 : 0;
 #pragma unroll
-    for (int j = 0; j < kMmaKeys / RP; ++j) {
-      const int r = r0 + j * RP;
+    for (int j = 0; j < kMmaKeys * CH / rt::kWarp; ++j) {
+      const int2 rc = rt::pass_chunk<CH, rt::kWarp>(lane, j);
+      const int r = rc.x, c = rc.y - c0;   // the column not yet added
       const bool in = k0 + r < rg.hi;
       size_t off = 0;
-      if (in) off = one_page ? base + r * row_step : token_offset(table, k0 + r, ps, hkv, h, D) + c * 8;
-      rt::cp_async16(kd + r * S, kp + off, in);
-      rt::cp_async16(vd + r * S, vp + off, in);
+      if (in) off = one_page ? base + r * row_step + c * 8
+                             : token_offset(table, k0 + r, ps, hkv, h, D) + rc.y * 8;
+      rt::cp_async16(kd + r * S + c * 8, kp + off, in);
+      rt::cp_async16(vd + r * S + c * 8, vp + off, in);
     }
   };
-  // e4m3: lane l copies 16-byte chunk l % CR (16 values) of rows l / CR,
-  // + RR, ... of a raw tile, through the same one-page address path
-  constexpr int CR = D / 16, RR = rt::kWarp / CR;
-  const int cr = lane % CR, rr0 = lane / CR;
+  // e4m3: lane l copies 16-byte chunks (16 values) l, l + 32, ... of a raw
+  // tile's kMmaKeys * CR (rows unpadded), through the same one-page address
+  // path; at D = 80 the 80 chunks take 2.5 passes, so the last is guarded
+  constexpr int CR = D / 16;
+  const int cr0 = rt::kWarp % CR == 0 ? lane % CR : 0;
   auto load_raw = [&](int i) {   // this warp's i-th tile into raw stage i % kStages
     const int k0 = tile_start(i);
-    rt::e4m3* kd = raw + (i % kStages) * 2 * RAW + cr * 16;
+    rt::e4m3* kd = raw + (i % kStages) * 2 * RAW + cr0 * 16;
     rt::e4m3* vd = kd + RAW;
-    const size_t base = one_page ? token_offset(table, k0, ps, hkv, h, D) + cr * 16 : 0;
+    const size_t base = one_page ? token_offset(table, k0, ps, hkv, h, D) + cr0 * 16 : 0;
 #pragma unroll
-    for (int j = 0; j < kMmaKeys / RR; ++j) {
-      const int r = rr0 + j * RR;
+    for (int j = 0; j < (kMmaKeys * CR + rt::kWarp - 1) / rt::kWarp; ++j) {
+      if (kMmaKeys * CR % rt::kWarp != 0 && lane + j * rt::kWarp >= kMmaKeys * CR) break;
+      const int2 rc = rt::pass_chunk<CR, rt::kWarp>(lane, j);
+      const int r = rc.x, c = rc.y - cr0;
       const bool in = k0 + r < rg.hi;
       size_t off = 0;
-      if (in) off = one_page ? base + r * row_step : token_offset(table, k0 + r, ps, hkv, h, D) + cr * 16;
-      rt::cp_async16(kd + r * D, kp + off, in);
-      rt::cp_async16(vd + r * D, vp + off, in);
+      if (in) off = one_page ? base + r * row_step + c * 16
+                             : token_offset(table, k0 + r, ps, hkv, h, D) + rc.y * 16;
+      rt::cp_async16(kd + r * D + c * 16, kp + off, in);
+      rt::cp_async16(vd + r * D + c * 16, vp + off, in);
     }
   };
   rt::cp_async_wait<0>();                  // Q and the table have landed
@@ -393,10 +409,11 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp
   rt::cp_async_commit();
 
   // Q^T fragments (the B operand of S^T = K Q^T): n-tile nt holds heads
-  // 8*nt .. 8*nt + 7; one ldmatrix.x4 gives two k-steps
+  // 8*nt .. 8*nt + 7; one ldmatrix.x4 gives two k-steps, and an odd last
+  // one (D = 80: KD = 5) comes by ldmatrix.x2
   uint32_t qf[KD][NT][2];
 #pragma unroll
-  for (int kk = 0; kk < KD; kk += 2) {
+  for (int kk = 0; kk + 1 < KD; kk += 2) {
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       uint32_t r[4];
@@ -405,6 +422,15 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp
       qf[kk][nt][1] = r[1];
       qf[kk + 1][nt][0] = r[2];
       qf[kk + 1][nt][1] = r[3];
+    }
+  }
+  if constexpr (KD % 2 != 0) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t r[2];
+      rt::ldsm_x2(r, qs + (nt * 8 + lane % 8) * S + (KD - 1) * 16 + (lane / 8 % 2) * 8);
+      qf[KD - 1][nt][0] = r[0];
+      qf[KD - 1][nt][1] = r[1];
     }
   }
 
@@ -769,7 +795,9 @@ cudaError_t launch_core(const Call& c, int splits) {
                          1.f / sqrtf(static_cast<float>(c.d)), c.softcap, c.window);
 }
 
-int variant(int d, int dtype) { return dtype == 1 && (d == 64 || d == 128 || d == 256); }
+int variant(int d, int dtype) {
+  return dtype == 1 && (d == 64 || d == 80 || d == 128 || d == 256);
+}
 
 // The cluster limit of the kernel (d, dtype, g, K/V) goes to (G <= 8 at
 // D = 256).
@@ -777,6 +805,7 @@ template <typename KV>
 int cap_for(int d, int dtype, int g) {
   if (!variant(d, dtype)) return kPortableCluster;
   if (d == 64) return g <= 8 ? mma_cap<64, 1, KV>() : mma_cap<64, 2, KV>();
+  if (d == 80) return g <= 8 ? mma_cap<80, 1, KV>() : mma_cap<80, 2, KV>();
   if (d == 128) return g <= 8 ? mma_cap<128, 1, KV>() : mma_cap<128, 2, KV>();
   return mma_cap<256, 1, KV>();
 }
@@ -790,6 +819,7 @@ cudaError_t dispatch(const Call& c, int dtype, int splits) {
   const int ncp = rt::col_pairs(c.d);
   if (variant(c.d, dtype)) {
     if (c.d == 64) return g <= 8 ? launch_mma<64, 1, KB>(c, splits) : launch_mma<64, 2, KB>(c, splits);
+    if (c.d == 80) return g <= 8 ? launch_mma<80, 1, KB>(c, splits) : launch_mma<80, 2, KB>(c, splits);
     if (c.d == 128) return g <= 8 ? launch_mma<128, 1, KB>(c, splits) : launch_mma<128, 2, KB>(c, splits);
     return launch_mma<256, 1, KB>(c, splits);
   }

@@ -223,6 +223,12 @@ MMA_SWEEP = [
     (2, 64, 8, 4, 256, 512, None, 50.0),
     (2, 64, 8, 4, 256, 640, 300, 50.0),
     (2, 32, 8, 4, 256, 448, 128, 50.0),
+    # zamba2's head dim (D = 80: 5 k-steps, 64-key tiles): G = 1 at a
+    # ragged Sq (64 queries a block, the last block 6), a window with a
+    # softcap, and G = 4 (16 queries a block)
+    (2, 70, 4, 4, 80, 200, None, None),
+    (2, 100, 4, 4, 80, 300, 40, 30.0),
+    (2, 37, 16, 4, 80, 160, None, None),
 ]
 
 
@@ -271,10 +277,11 @@ def _split_decode_emulation(q, k_pages, v_pages, block_tables, lengths, *,
     tiles w, w + 4,
     ... and keeps its own online softmax (m, l, acc) in f32; every (split,
     warp) partial is merged in f32, and an empty one (m = -inf) weighs 0.
-    bf16 at D = 64 / 128 / 256 is the tensor-core variant (16-key tiles, P
-    rounded to bf16 for P V); other inputs the CUDA-core one (32-key tiles,
-    P in f32; the kernel runs 1-4 warps as shared memory allows, which
-    changes only the order of the f32 merge). Length 0 gives 0."""
+    bf16 at D = 64 / 80 / 128 / 256 is the tensor-core variant (16-key
+    tiles, P rounded to bf16 for P V); other inputs the CUDA-core one
+    (32-key tiles, P in f32; the kernel runs 1-4 warps as shared memory
+    allows, which changes only the order of the f32 merge). Length 0 gives
+    0."""
     b, hq, d = q.shape
     ps, hkv = k_pages.shape[1], k_pages.shape[2]
     g, mp = hq // hkv, block_tables.shape[1]
@@ -345,6 +352,13 @@ SPLIT_SWEEP = [
     (8, 8, 4, 256, 64, 16, "bfloat16", [300, 420, 96, 512, 280, 333, 64, 450],
      50.0, None),
     (1, 8, 4, 256, 64, 68, "bfloat16", [4300], 50.0, None),
+    # zamba2 (G = 1, D = 80) on the tensor cores: the serve step's 8 slots
+    # over 32 KV heads (256 pairs, S = 1; 8 pages of 64 hold the longest),
+    # one slot split over 16 blocks, a partial page
+    (8, 32, 32, 80, 64, 8, "bfloat16", [300, 420, 96, 512, 280, 333, 64, 450],
+     None, None),
+    (1, 4, 4, 80, 16, 32, "bfloat16", [500], None, None),
+    (2, 4, 4, 80, 16, 4, "bfloat16", [17, 50], None, 3),
 ]
 
 
@@ -508,9 +522,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(kernel):
 def test_tensor_core_head_dims_are_one_rule():
     """Both attention wrappers send bf16 at the same head dims to their
     tensor-core kernels (chip_smoke.py holds each C variant function to
-    this constant), and gemma2's 256 is one of them."""
+    this constant), and gemma2's 256 and zamba2's 80 are among them."""
     assert tchunk.TENSOR_CORE_HEAD_DIMS == tpaged.TENSOR_CORE_HEAD_DIMS \
-        == (64, 128, 256)
+        == (64, 80, 128, 256)
 
 
 @pytest.mark.parametrize("module", [tchunk, tpaged, twkv],
@@ -545,6 +559,8 @@ def test_e4m3_launches_count_under_their_own_variant_keys(module,
     for d, dtype, kv, want in ((128, bf16, 0, "tensor_core"),
                                (128, bf16, 1, "tensor_core_e4m3"),
                                (256, bf16, 1, "tensor_core_e4m3"),
+                               (80, bf16, 1, "tensor_core_e4m3"),
+                               (80, f32, 0, "cuda_core"),
                                (96, bf16, 1, "cuda_core_e4m3"),
                                (128, f32, 1, "cuda_core_e4m3"),
                                (64, f32, 0, "cuda_core")):
