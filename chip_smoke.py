@@ -151,6 +151,30 @@ Phases (one line each, a non-zero exit on any failure):
   serve_zamba2  the same on zamba2-2.7b (the hybrid main path: both
             attention kernels' tensor-core bf16 instances at D = 80 and no
             other)
+  train     the training main path on full-width qwen2-1.5b (bf16, remat
+            "dots"): 20 AdamW steps (lr 1e-3, warmup 5, f32 master copy) of
+            8 x 512 tokens from train/data.py's stream. Step 0 by its parts:
+            every parameter leaf's gradient finite and non-zero (an
+            attention branch cut out of the graph would leave wq / wk / wv
+            without one); every step through make_train_step with no kernel
+            launch (ops.LaunchTally); finite losses, the last below the
+            first. Prints step ms (median of steps 5-19), tokens/s, the
+            share of peak (6 N T / step / 989 TFLOP/s, N every parameter),
+            peak memory; the step ms under remat "full" (3 steps); one
+            step's forward / backward / optimizer parts
+            with the card synchronised between them, their wall ms, then
+            (another step, profiled) their device ms, the GEMMs' and the
+            plain attention's shares and the top kernels; then api.prefill of 2 rows x 256 on the trained weights
+            through the tensor-core prefill kernel, its last logits held to
+            forward_train's at the same positions (MODEL_TOL, bf16)
+  train_families  every family's SMOKE config in f32 (qwen2, gemma2,
+            arctic, paligemma, rwkv6 at S 64 and 40, zamba2 at S 64 and 40,
+            whisper at S 64): api.loss and every leaf's gradient on the card
+            held to the CPU's from the same init and batch (relative L2
+            1e-4); the three kernel ops refuse CUDA inputs that require
+            grad; a qwen2 SMOKE run of 6 steps on the card restarted from a
+            checkpoint at step 3 ends bit for bit where an uninterrupted run
+            does
 Each phase prints its seconds. Each serve phase zeroes the kernels' launch counts just before it and reads
 them just after, per device kernel variant too (a CUDA graph replay adds
 what its capture counted): the dense paths must launch the tensor-core
@@ -158,6 +182,10 @@ prefill and decode kernels, the gemma2 paths too (head_dim 256), the fp8
 paths their e4m3 instances and no other; the rwkv path both wkv6 kernels;
 the zamba2 path both attention kernels' tensor-core instances (D = 80).
 The transformer paths' steps (dense, MoE, VLM) are CUDA graph replays.
+The training path launches no kernel of this repository (the JAX package
+trains through XLA's attention and the jnp WKV forms, not its Pallas
+kernels); the train phase asserts so and then runs the prefill kernel on
+the weights it trained.
 
 The last lines are the kernels' JSON record, the run's seconds, the
 nvidia-smi line and {"ok": true, "device": {...}}. Without a CUDA device,
@@ -173,6 +201,7 @@ import itertools
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -197,7 +226,7 @@ from repro_torch.kernels import (build, chunked_prefill, ops,  # noqa: E402
                                  paged_attention, ref, wkv6)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
-from repro_torch.models import mamba2, moe  # noqa: E402
+from repro_torch.models import mamba2, moe, rwkv6, transformer  # noqa: E402
 from repro_torch.models.layers import decode_page_size, to_e4m3  # noqa: E402
 from repro_torch.perf import H100, CostModel, WorkerSpec  # noqa: E402
 from repro_torch.perf.calibrate import (calibrate_hardware,  # noqa: E402
@@ -206,6 +235,8 @@ from repro_torch.serving.engine import IterationPlan  # noqa: E402
 from repro_torch.serving import executor as texec  # noqa: E402
 from repro_torch.serving.executor import ClusterRealExecutors  # noqa: E402
 from repro_torch.serving.paged_store import PagedKVStore  # noqa: E402
+from repro_torch.train import checkpoint, optimizer  # noqa: E402
+from repro_torch.train.data import DataConfig, SyntheticLM  # noqa: E402
 
 DEV = torch.device("cuda")
 E4M3 = torch.float8_e4m3fn
@@ -550,7 +581,7 @@ def _compare_wkv(name, args) -> float:
     """The kernel against the sequential scan on the same inputs; returns
     the largest absolute error of out and of the state."""
     out, st = wkv6.wkv6(*args)
-    want, s_want = ref.wkv_scan(*args)
+    want, s_want = rwkv6.wkv_scan(*args)
     torch.cuda.synchronize()
     check(torch.isfinite(out).all().item() and torch.isfinite(st).all().item(),
           f"{name}: non-finite")
@@ -1326,7 +1357,7 @@ class _ShadowWKV:
 
         def shadow(r, k, v, w, u, s0, mode):
             got = self.saved(r, k, v, w, u, s0, mode)
-            want = ref.wkv_scan(r, k, v, w, u, s0)
+            want = rwkv6.wkv_scan(r, k, v, w, u, s0)
             self.worst = max(self.worst, _tol_share(got, want))
             self.plain_worst = max(self.plain_worst, _tol_share(
                 ref.wkv6_ref(r, k, v, w, u, s0, mode), want))
@@ -1378,7 +1409,7 @@ def phase_model_rwkv() -> None:
         with _PlainKernels():
             want, _, s_want = run(toks)
         with _PlainKernels(lambda r, k, v, w, u, s0, mode:
-                           ref.wkv_scan(r, k, v, w, u, s0)):
+                           rwkv6.wkv_scan(r, k, v, w, u, s0)):
             scan, _, s_scan = run(toks)
         rel, agree = _logit_errors(got, want)
         floor, _ = _logit_errors(scan, want)
@@ -2919,6 +2950,292 @@ def phase_serve(card: str, phase: str, arch: str, kernels: dict,
                        for v, n in by.items()}
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_TIMED_FROM = 8, 512, 20, 5
+TRAIN_OPT = optimizer.AdamWConfig(lr=1e-3, warmup_steps=5)
+# the plain attention's ops in a training step: its products (the only
+# batched matrix products of a dense model) and its softmax, forward and
+# backward (the rest of it, the mask and the casts, counts as elementwise)
+ATTENTION_OPS = ("aten::bmm", "aten::_softmax", "aten::_softmax_backward_data")
+
+
+def _rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _train_parts(api, params, state, batch, profiled: bool) -> tuple:
+    """One step of make_train_step's three parts, the forward (the loss),
+    the backward (autograd.grad) and the optimizer (apply_updates), with
+    the card synchronised between them: ({part: wall ms}, or with
+    ``profiled`` {part: ``_profiled``'s (wall, kernels, events)}, the new
+    params)."""
+    res = {}
+    live = optimizer.tree_map(lambda p: p.detach().requires_grad_(), params)
+
+    def update():
+        it = iter(res["grads"])
+        res["new"] = optimizer.apply_updates(
+            params, optimizer.tree_map(lambda _: next(it), params), state,
+            TRAIN_OPT)[0]
+
+    parts = {"forward": lambda: res.update(loss=api.loss(live, batch)),
+             "backward": lambda: res.update(grads=torch.autograd.grad(
+                 res["loss"], optimizer.leaves(live))),
+             "optimizer": update}
+    out = {}
+    for name, fn in parts.items():
+        if profiled:
+            out[name] = _profiled(fn)
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3
+    return out, res["new"]
+
+
+def phase_train(card: str) -> None:
+    """Full-width qwen2-1.5b trained through the port's entry points (see
+    the module docstring)."""
+    cfg = get_config(ARCH)
+    api = model_api.build(cfg)
+    params = api.init(torch.Generator(device=DEV).manual_seed(0))
+    n_params = sum(p.numel() for p in _leaves(params))
+    data = SyntheticLM(cfg, DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ), DEV)
+    state = optimizer.init_state(params)
+    step_fn = optimizer.make_train_step(api.loss, TRAIN_OPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tally = ops.LaunchTally()
+
+    def step0():
+        loss, grads = optimizer.loss_and_grads(api.loss, params,
+                                               data.batch_at(0))
+        bad = [("/".join(k), g.abs().max().item())
+               for k, g in _leaf_items(grads)
+               if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+        check(not bad, f"train: step 0 gradients not finite or all zero: "
+              f"{bad}")
+        return (loss,) + optimizer.apply_updates(params, grads, state,
+                                                 TRAIN_OPT)
+
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        batch = data.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            loss, params, state = tally.record(step0)
+        else:
+            params, state, loss = tally.record(
+                lambda: step_fn(params, state, batch))
+        losses.append(float(loss))
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(all(n == 0 for n, _ in tally.counts),
+              f"train: step {i} launched kernels {tally.counts}")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(times[TRAIN_TIMED_FROM:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # 6 N T with N every parameter (the embedding's included)
+    peak_share = 6 * n_params * tokens / (step_ms * 1e-3) \
+        / PEAK_FLOPS[cfg.dtype]
+    say("train", arch=ARCH, params_b=f"{n_params / 1e9:.4f}",
+        tokens_per_step=tokens, steps=TRAIN_STEPS,
+        loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
+        losses=",".join(f"{x:.3f}" for x in losses),
+        step_ms=f"{step_ms:.3f}",
+        step_ms_min_max=f"{min(times[TRAIN_TIMED_FROM:]):.3f}/"
+                        f"{max(times[TRAIN_TIMED_FROM:]):.3f}",
+        tokens_per_s=f"{tokens / step_ms * 1e3:.1f}",
+        share_of_peak=f"{peak_share:.4f}",
+        peak_memory_gb=f"{peak / 1e9:.2f}", card=repr(card))
+    check(all(math.isfinite(x) for x in losses), "train: non-finite loss")
+    check(losses[-1] < losses[0], f"train: the loss did not fall "
+          f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+
+    # the same steps under remat "full" (only the blocks' inputs kept)
+    full_step = optimizer.make_train_step(model_api.build(
+        dataclasses.replace(cfg, remat_policy="full")).loss, TRAIN_OPT)
+    full_ms = []
+    for i in range(TRAIN_STEPS, TRAIN_STEPS + 4):
+        batch = data.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, _ = full_step(params, state, batch)
+        torch.cuda.synchronize()
+        full_ms.append((time.perf_counter() - t0) * 1e3)
+    say("train", remat_full_step_ms=f"{statistics.median(full_ms[1:]):.3f}",
+        remat_dots_step_ms=f"{step_ms:.3f}", card=repr(card))
+
+    walls, params = _train_parts(api, params, state,
+                                 data.batch_at(TRAIN_STEPS), False)
+    profiled, params = _train_parts(api, params, state,
+                                    data.batch_at(TRAIN_STEPS + 1), True)
+    kernels = [k for _, ks, _ in profiled.values() for k in ks]
+    device = {name: _device_ms(ks) for name, (_, ks, _) in profiled.items()}
+    total = sum(device.values())
+    gemm = _device_ms(kernels, _is_gemm)
+    attention = sum(_device_us(e) for _, _, events in profiled.values()
+                    for e in events if e.key in ATTENTION_OPS) / 1e3
+    say("train", **{f"{k}_wall_ms": f"{v:.3f}" for k, v in walls.items()},
+        **{f"{k}_device_ms": f"{v:.3f}" for k, v in device.items()},
+        **{f"{k}_idle_share": f"{max(0.0, 1 - device[k] / v):.3f}"
+           for k, v in walls.items()},
+        gemm_ms=f"{gemm:.3f}", gemm_share=f"{gemm / total:.3f}",
+        plain_attention_ms=f"{attention:.3f}",
+        plain_attention_share=f"{attention / total:.3f}", card=repr(card))
+    top = {}
+    for k in kernels:
+        top[k.key] = top.get(k.key, 0.0) + _device_us(k) / 1e3
+    for name, ms in sorted(top.items(), key=lambda kv: -kv[1])[:12]:
+        say("train", kernel=name[:90].replace(" ", ""), device_ms=f"{ms:.3f}",
+            share=f"{ms / total:.3f}")
+
+    # a hand-written kernel on the trained weights: the tensor-core prefill
+    rows, n = 2, 256
+    tokens_in = data.batch_at(TRAIN_STEPS + 2)["tokens"][:rows, :n]
+    out = []
+    lengths = torch.tensor([n, 200], dtype=torch.int32, device=DEV)
+    with torch.no_grad():
+        want = transformer.forward_train(params, tokens_in, cfg)
+        want = want[torch.arange(rows, device=DEV), lengths.long() - 1]
+        _zero_counts()
+        _expect_variant("tensor_core", lambda: out.append(api.prefill(
+            params, api.init_cache(rows, n, DEV), tokens_in, lengths)[0]),
+            chunked_prefill)
+    rel = _rel_l2(out[0], want)
+    say("train", prefill_after_training_rel_l2=f"{rel:.3e}",
+        tol=MODEL_TOL[cfg.dtype],
+        prefill_launches=dict(chunked_prefill.launches_by_variant))
+    check(chunked_prefill.launches_by_variant["tensor_core"] > 0,
+          "train: the prefill launched no tensor-core kernel")
+    check(bool(torch.isfinite(out[0]).all()) and rel <= MODEL_TOL[cfg.dtype],
+          f"train: prefill logits on the trained weights differ from "
+          f"forward_train's by {rel:.3e} (relative L2)")
+
+
+TRAIN_FAMILIES = (("qwen2-1.5b", 32), ("gemma2-2b", 32), ("arctic-480b", 32),
+                  ("paligemma-3b", 32), ("rwkv6-7b", 64), ("rwkv6-7b", 40),
+                  ("zamba2-2.7b", 64), ("zamba2-2.7b", 40),
+                  ("whisper-medium", 64))
+# relative L2 of the card's loss and of each gradient leaf against the
+# CPU's, the latter against the larger of the leaf's norm and GRAD_FLOOR of
+# the whole gradient's (whisper's key biases have an analytically zero
+# gradient: both devices leave rounding noise there)
+TRAIN_TOL, GRAD_FLOOR = 1e-4, 1e-4
+
+
+def _grad_errors(got, want) -> tuple:
+    """(worst relative L2 over the leaves, its leaf) of the card's grads
+    against the CPU's."""
+    total = math.sqrt(sum(float(w.float().square().sum())
+                          for _, w in _leaf_items(want)))
+    want = dict(_leaf_items(want))
+    worst, where = 0.0, None
+    for key, g in _leaf_items(got):
+        w = want[key].float()
+        rel = ((g.float().cpu() - w).norm()
+               / max(w.norm().item(), GRAD_FLOOR * total)).item()
+        if rel >= worst:
+            worst, where = rel, "/".join(key)
+    return worst, where
+
+
+def _refusal_inputs():
+    """Tiny CUDA inputs of the three kernel ops, q (or r) requiring grad."""
+    def rnd(*shape):
+        return torch.randn(shape, device=DEV)
+    q = rnd(1, 4, 2, 16).requires_grad_()
+    return {
+        "chunked_prefill_op": lambda: ops.chunked_prefill_op(
+            q, rnd(1, 8, 1, 16), rnd(1, 8, 1, 16),
+            torch.zeros(1, dtype=torch.int32, device=DEV)),
+        "paged_attention_op": lambda: ops.paged_attention_op(
+            q[:, 0], rnd(2, 4, 1, 16), rnd(2, 4, 1, 16),
+            torch.tensor([[0, 1]], dtype=torch.int32, device=DEV),
+            torch.tensor([5], dtype=torch.int32, device=DEV)),
+        "wkv6_op": lambda: ops.wkv6_op(
+            rnd(1, 3, 1, 64).requires_grad_(), rnd(1, 3, 1, 64),
+            rnd(1, 3, 1, 64), torch.rand((1, 3, 1, 64), device=DEV),
+            rnd(1, 64), torch.zeros(1, 1, 64, 64, device=DEV), "chunked")}
+
+
+def phase_train_families() -> None:
+    """Every family's SMOKE loss and gradients, card against CPU; the ops'
+    refusals on the card; a restart from a checkpoint (module docstring)."""
+    for arch, seq in TRAIN_FAMILIES:
+        cfg = configs.get_smoke(arch)
+        api = model_api.build(cfg)
+        params = api.init(torch.Generator().manual_seed(0))
+        on_card = optimizer.tree_map(lambda t: t.to(DEV), params)
+        out = {}
+        for dev, p in (("cpu", params), ("card", on_card)):
+            batch = SyntheticLM(cfg, DataConfig(batch=2, seq=seq),
+                                "cpu" if dev == "cpu" else DEV).batch_at(0)
+            with _Routes() as routes:
+                out[dev] = optimizer.loss_and_grads(api.loss, p, batch)
+            out[dev] += ([r.cpu() for r in routes.ids],)
+        (l_cpu, g_cpu, r_cpu), (l_dev, g_dev, r_dev) = out["cpu"], out["card"]
+        flips = sum(int((a.sort(-1)[0] != b.sort(-1)[0]).any(-1).sum())
+                    for a, b in zip(r_cpu, r_dev))
+        loss_rel = abs(l_dev.item() - l_cpu.item()) / abs(l_cpu.item())
+        worst, where = _grad_errors(g_dev, g_cpu)
+        say("train_families", arch=arch, seq=seq,
+            loss_cpu=f"{l_cpu.item():.6f}", loss_card=f"{l_dev.item():.6f}",
+            loss_rel=f"{loss_rel:.2e}", worst_grad_rel_l2=f"{worst:.2e}",
+            worst_leaf=where, route_calls=len(r_dev), route_flips=flips)
+        check(flips == 0, f"train_families {arch}: {flips} routes differ "
+              "between the card and the CPU")
+        check(loss_rel <= TRAIN_TOL and worst <= TRAIN_TOL,
+              f"train_families {arch} S {seq}: loss {loss_rel:.2e}, "
+              f"gradient {worst:.2e} at {where} (relative L2)")
+
+    for name, call in _refusal_inputs().items():
+        try:
+            call()
+        except ValueError as e:
+            check("requires grad" in str(e), f"{name}: {e}")
+        else:
+            raise AssertionError(f"{name}: took a CUDA input that requires "
+                                 "grad")
+    say("train_families", ops_refuse_grad="chunked_prefill_op,"
+        "paged_attention_op,wkv6_op")
+
+    # restart at step 3 from a checkpoint on the card == 6 steps in a row
+    cfg = configs.get_smoke(ARCH)
+    api = model_api.build(cfg)
+    step = optimizer.make_train_step(api.loss, optimizer.AdamWConfig(
+        lr=3e-3, warmup_steps=5))
+    data = SyntheticLM(cfg, DataConfig(batch=4, seq=32), DEV)
+
+    def fresh():
+        p = api.init(torch.Generator(device=DEV).manual_seed(0))
+        return p, optimizer.init_state(p)
+
+    def run(p, s, steps):
+        for i in steps:
+            p, s, _ = step(p, s, data.batch_at(i))
+        return p, s
+
+    p, s = run(*fresh(), range(6))
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "train_ckpt"
+    try:
+        p2, s2 = run(*fresh(), range(3))
+        checkpoint.save(ckpt_dir, 3, {"params": p2, "state": s2})
+        target = dict(zip(("params", "state"), fresh()))
+        tree = checkpoint.restore(ckpt_dir, checkpoint.latest_step(ckpt_dir),
+                                  target, DEV)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    p2, s2 = run(tree["params"], tree["state"], range(3, 6))
+    same = all(torch.equal(a, b) for a, b in zip(_leaves(p), _leaves(p2)))
+    say("train_families", restart_at_3_bit_equal=same)
+    check(same, "train_families: the run restarted from its checkpoint "
+          "left the uninterrupted one")
+
+
 def run_phase(name: str, fn, *args):
     """``fn(*args)``, a line with the phase's seconds, then what the phase
     left freed (``_release``)."""
@@ -2981,6 +3298,8 @@ def main() -> None:
                 "model_vlm": vlm_launches, "model_whisper": whisper_launches}
     for phase, *args in serves:
         launches[phase] = run_phase(phase, phase_serve, card, phase, *args)
+    run_phase("train", phase_train, card)
+    run_phase("train_families", phase_train_families)
     # a record's launches: its device kernel's on its main path (the e4m3
     # records' on the same path with the fp8 cache)
     main = {"chunked_prefill": ("serve", "chunked_prefill.tensor_core"),

@@ -3,7 +3,12 @@
 Tensors on the CPU go to the plain versions in ``kernels.ref``; tensors on
 a CUDA device go to the Hopper kernels, which launch or raise. Nothing
 falls back: a CUDA tensor the kernel does not take (dtype, head_dim, ...)
-raises, and so do tensors on other devices or on mixed ones.
+raises, and so do tensors on other devices or on mixed ones. The kernels
+have no backward, and a launch through ``ctypes`` is invisible to
+autograd, so every op refuses, on both devices, inputs that require grad
+while grad mode is on: the training forwards compute attention with
+``models.layers.attention_scores`` and WKV with ``models.rwkv6``'s
+``wkv_chunked`` / ``wkv_scan``, as the JAX package trains through XLA.
 
 ``LaunchTally`` keeps the wrappers' launch counts true under CUDA graphs:
 a wrapper counts in Python where it launches, and a graph replay runs the
@@ -23,9 +28,19 @@ def _device_kind(name: str, *tensors: torch.Tensor) -> str:
     raise ValueError(f"{name}: no kernel for tensors on {sorted(kinds)}")
 
 
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{name}: an input requires grad, and the kernel has no backward "
+            "(its launch is invisible to autograd); the training path "
+            "(api.loss, each family's forward_train) takes the plain torch "
+            "ops: layers.attention_scores, rwkv6.wkv_chunked / wkv_scan")
+
+
 def paged_attention_op(q, k_pages, v_pages, block_tables, lengths,
                        softcap=None, window=None):
     args = (q, k_pages, v_pages, block_tables, lengths)
+    _refuse_grad("paged_attention_op", *args)
     if _device_kind("paged_attention_op", *args) == "cpu":
         return ref.paged_attention_ref(*args, softcap=softcap, window=window)
     return paged_attention.paged_attention(*args, softcap=softcap,
@@ -35,6 +50,7 @@ def paged_attention_op(q, k_pages, v_pages, block_tables, lengths,
 def chunked_prefill_op(q, k_cache, v_cache, starts, softcap=None,
                        window=None):
     args = (q, k_cache, v_cache, starts)
+    _refuse_grad("chunked_prefill_op", *args)
     if _device_kind("chunked_prefill_op", *args) == "cpu":
         return ref.chunked_prefill_attention_ref(*args, softcap=softcap,
                                                  window=window)
@@ -47,6 +63,7 @@ def wkv6_op(r, k, v, w, u, s0, mode: str):
     model's sequence mode, "decode" (T == 1) or "chunked". On the CPU it
     picks the plain form the JAX model picks (``ref.wkv6_ref``); on the card
     the kernel takes every T. Returns (out f32, sT f32)."""
+    _refuse_grad("wkv6_op", r, k, v, w, u, s0)
     if mode not in ("decode", "chunked"):
         raise ValueError(f"wkv6_op: mode must be 'decode' or 'chunked', "
                          f"got {mode!r}")

@@ -3,9 +3,10 @@
 Attention: counterparts of ``repro/kernels/ref.py``; inputs are upcast to
 f32 and masked scores are set to -1e30, exactly as there. K/V stored as
 fp8 (e4m3) are first widened to q's dtype, as the JAX model casts its
-quantised cache before attention. WKV6: the three forms of the RWKV-6
-recurrence in ``repro/models/rwkv6.py`` (``wkv_scan``, ``wkv_chunked``,
-``wkv_decode``), in f32. ``kernels.ops`` sends tensors
+quantised cache before attention. WKV6: the form of the RWKV-6
+recurrence the JAX model picks (``wkv6_ref``), among the three that
+``models/rwkv6.py`` keeps where JAX keeps them (``wkv_scan``,
+``wkv_chunked``, ``wkv_decode``, in f32). ``kernels.ops`` sends tensors
 that lie on the CPU here; ``chip_smoke.py`` holds each Hopper kernel
 against these on the card.
 """
@@ -14,6 +15,10 @@ from __future__ import annotations
 import math
 
 import torch
+
+# the module, not its names: models.rwkv6 imports kernels.ops, which
+# imports this module
+from repro_torch.models import rwkv6
 
 NEG_INF = -1e30
 
@@ -83,78 +88,11 @@ def chunked_prefill_attention_ref(q, k_cache, v_cache, starts, *,
 # ---------------------------------------------------------------------------
 
 
-def wkv_scan(r, k, v, w, u, s0):
-    """Sequential WKV (the oracle). Returns (out (B, T, H, D), sT) in f32."""
-    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
-    uf = u.float()[None, :, :, None]
-    s = s0.float()
-    outs = []
-    for t in range(r.shape[1]):
-        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
-        outs.append(torch.einsum("bhi,bhij->bhj", rf[:, t], s + uf * kv))
-        s = wf[:, t, :, :, None] * s + kv
-    return torch.stack(outs, dim=1), s
-
-
-def wkv_chunked(r, k, v, w, u, s0, chunk: int = 64):
-    """Chunked-parallel WKV: intra-chunk masked products, the state carried
-    across chunks; exponents relative to the chunk's midpoint cumulative
-    decay (f32-safe under the model's decay clip). Matches wkv_scan."""
-    b, t, h, d = r.shape
-    if t % chunk:
-        raise ValueError(f"wkv_chunked: T={t} is not a multiple of {chunk}")
-    n = t // chunk
-
-    def to_chunks(a):                                   # (n, B, H, C, D)
-        return a.float().reshape(b, n, chunk, h, d).permute(1, 0, 3, 2, 4)
-
-    rc, kc, vc, wc = map(to_chunks, (r, k, v, w))
-    logw = torch.log(wc.clamp_min(1e-38))
-    cum = logw.cumsum(dim=-2)                           # inclusive
-    total = cum[..., -1:, :]
-    mid = cum[..., chunk // 2:chunk // 2 + 1, :]
-    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                 device=r.device), diagonal=-1)
-    uf = u.float()[None, :, None, :]
-    s = s0.float()
-    outs = []
-    for i in range(n):
-        rt, kt, vt = rc[i], kc[i], vc[i]
-        cum_prev = cum[i] - logw[i]
-        out_state = torch.einsum("bhcd,bhde->bhce",
-                                 rt * torch.exp(cum_prev), s)
-        r_dec = rt * torch.exp(cum_prev - mid[i])
-        kj = kt * torch.exp(mid[i] - cum[i])
-        att = torch.einsum("bhid,bhjd->bhij", r_dec, kj)
-        att = torch.where(mask, att, torch.zeros((), device=r.device))
-        diag = torch.einsum("bhid,bhid->bhi", rt * uf, kt)
-        out_intra = torch.einsum("bhij,bhjd->bhid", att, vt) \
-            + diag[..., None] * vt
-        k_dec = kt * torch.exp(total[i] - cum[i])
-        s = torch.exp(total[i].squeeze(-2))[..., None] * s + torch.einsum(
-            "bhcd,bhce->bhde", k_dec, vt)
-        outs.append(out_state + out_intra)
-    out = torch.stack(outs)                             # (n, B, H, C, D)
-    return out.permute(1, 0, 3, 2, 4).reshape(b, t, h, d), s
-
-
-def wkv_decode(r, k, v, w, u, s):
-    """Single-token WKV. r, k, v, w: (B, H, D); s: (B, H, D, D)."""
-    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
-    kv = kf[..., :, None] * vf[..., None, :]
-    out = torch.einsum("bhi,bhij->bhj", rf,
-                       s + u.float()[None, :, :, None] * kv)
-    return out, wf[..., None] * s + kv
-
-
 def wkv6_ref(r, k, v, w, u, s0, mode: str):
     """The form the JAX model's ``_time_mix`` picks: ``wkv_decode`` for
     decode (T == 1), ``wkv_chunked`` when T is a positive multiple of 64,
     else ``wkv_scan``. Returns (out (B, T, H, D) f32, sT f32)."""
     if mode == "decode":
-        out, s = wkv_decode(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, s0)
+        out, s = rwkv6.wkv_decode(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, s0)
         return out[:, None], s
-    t = r.shape[1]
-    if t % 64 == 0 and t >= 64:
-        return wkv_chunked(r, k, v, w, u, s0)
-    return wkv_scan(r, k, v, w, u, s0)
+    return rwkv6.wkv_sequence(r, k, v, w, u, s0)

@@ -26,7 +26,13 @@ backbone behind a stub frontend's patch features), rwkv6, the hybrid
   decode(params, cache, tokens, lengths)     -> (logits, cache)
   prepare(params)                            -> params for repeated steps
                                                 (dense: per-layer views
-                                                built once)
+                                                built once; serving only)
+  loss(params, batch, ep=None)               -> scalar mean cross-entropy
+                                                under autograd (each
+                                                family's ``lm_loss``; batch
+                                                as ``train.data`` draws it;
+                                                ``ep`` raises: no expert
+                                                parallelism yet)
 
 The cache or state is updated in place (see ``models.transformer``,
 ``models.rwkv6``, ``models.zamba2``, ``models.whisper``).
@@ -47,14 +53,27 @@ class ModelAPI:
     init_cache: Callable
     prefill: Callable
     decode: Callable
+    loss: Callable
     prefill_chunk: Optional[Callable] = None
     prepare: Callable = lambda params: params
+
+
+def _loss(lm_loss, cfg: ModelConfig) -> Callable:
+    def loss(params, batch, ep=None):
+        if ep is not None:
+            raise NotImplementedError(
+                "loss(ep=...): expert parallelism across devices is not "
+                "ported yet (ROADMAP.md, queue 1 item 5); the port trains "
+                "on one device (ep=None)")
+        return lm_loss(params, batch, cfg)
+    return loss
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
     if cfg.family == "rwkv":
         return ModelAPI(
             cfg=cfg,
+            loss=_loss(rwkv6.lm_loss, cfg),
             init=lambda gen: rwkv6.init_lm(gen, cfg),
             init_cache=lambda b, s, device: rwkv6.init_state(cfg, b, device),
             prefill=lambda p, c, t, l: rwkv6.prefill(p, c, t, l, cfg),
@@ -63,6 +82,7 @@ def build(cfg: ModelConfig) -> ModelAPI:
     if cfg.family == "hybrid":
         return ModelAPI(
             cfg=cfg,
+            loss=_loss(zamba2.lm_loss, cfg),
             init=lambda gen: zamba2.init_lm(gen, cfg),
             init_cache=lambda b, s, device: zamba2.init_state(cfg, b, s,
                                                               device),
@@ -72,6 +92,7 @@ def build(cfg: ModelConfig) -> ModelAPI:
     if cfg.family == "encdec":
         return ModelAPI(
             cfg=cfg,
+            loss=_loss(whisper.lm_loss, cfg),
             init=lambda gen: whisper.init_lm(gen, cfg),
             init_cache=lambda b, s, device, enc_len=0: whisper.init_cache(
                 cfg, b, s, enc_len or max(8, s // 4), device),
@@ -91,6 +112,7 @@ def build(cfg: ModelConfig) -> ModelAPI:
 
     return ModelAPI(
         cfg=cfg,
+        loss=_loss(transformer.lm_loss, cfg),
         init=lambda gen: transformer.init_lm(gen, cfg),
         init_cache=lambda b, s, device: transformer.init_cache(cfg, b, s,
                                                                device),

@@ -8,8 +8,12 @@ Conventions
 -----------
 * Params are nested dicts of tensors; weights are stored in ``cfg.dtype``
   (default bf16); norms, rope and softmax run in f32.
-* Attention goes through ``repro_torch.kernels.ops``: the Hopper kernels
-  for tensors on the card, their plain versions for tensors on the CPU.
+* Attention over a KV cache goes through ``repro_torch.kernels.ops``: the
+  Hopper kernels for tensors on the card, their plain versions for tensors
+  on the CPU. Attention without a cache (training, whisper's encoder and
+  cross-attention) is ``attention_scores``, plain torch ops under autograd
+  as the JAX ``_attn_block`` is XLA; the kernels refuse inputs that
+  require grad.
 * Nothing on a step's path waits for the card (no ``.item()``, no shape
   read from a tensor's values), so a step can be captured as a CUDA graph
   (``serving.executor``).
@@ -17,11 +21,13 @@ Conventions
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import ops
 
@@ -145,6 +151,19 @@ def layer(tree, i: int):
             for k, v in tree.items()}
 
 
+def unstack(tree) -> list:
+    """Every layer's views of a stacked tree, one ``torch.unbind`` per
+    leaf: the training forwards' per-layer weights. Under autograd the
+    layers' gradients are stacked once; ``layer``'s indexing would give
+    each layer a zero-filled gradient of the whole stack, summed over the
+    layers (28 passes over qwen2-1.5b's 2.6 GB of blocks)."""
+    if not isinstance(tree, dict):
+        return list(tree.unbind(0))
+    per_key = {k: unstack(v) for k, v in tree.items()}
+    n = len(next(iter(per_key.values())))
+    return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -260,6 +279,24 @@ class MaskSpec:
     window: Optional[int] = None
     q_offset: int = 0
 
+    def block(self, sq: int, sk: int, q_start: int,
+              device) -> Optional[torch.Tensor]:
+        """The (sq, sk) mask of queries [q_start, q_start + sq) over keys
+        [0, sk) for the kinds that need no cache: None for "full", the
+        causal (and window) mask for "causal", as JAX's ``MaskSpec.block``."""
+        if self.kind == "full":
+            return None
+        if self.kind != "causal":
+            raise ValueError(f"attention without a cache takes MaskSpec "
+                             f"'causal' or 'full', got {self.kind!r}")
+        qpos = torch.arange(sq, device=device)[:, None] + q_start \
+            + self.q_offset
+        kpos = torch.arange(sk, device=device)[None, :]
+        ok = kpos <= qpos
+        if self.window is not None:
+            ok = ok & (kpos > qpos - self.window)
+        return ok
+
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
@@ -281,10 +318,12 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
       cross-attention); no rope on q, no cache written; returns
       ``(out, None)``.
     * no ``kv_cache``: self-attention over x's own K/V under
-      ``MaskSpec("full")`` (whisper's encoder); returns ``(out, (k, v))``.
+      ``MaskSpec("full")`` (whisper's encoder) or ``MaskSpec("causal")``
+      (the training forwards); returns ``(out, (k, v))``.
 
-    Both run ``attention_full``, plain torch ops as the JAX ``_attn_block``
-    computes them (XLA there, no Pallas kernel). With a cache, the new K/V
+    Both run ``attention_scores``, plain torch ops as the JAX
+    ``_attn_block`` computes them (XLA there, no Pallas kernel), so
+    autograd sees them. With a cache, the new K/V
     are written into ``kv_cache`` IN PLACE at ``cache_positions`` (the JAX
     version returns an updated copy) and ``(out, kv_cache)`` is returned.
     Attention over a cache goes to ``kernels.ops``:
@@ -314,8 +353,8 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.qkv_bias:
         q = q + params["bq"]
     if cross_kv is not None:
-        _refuse_unless_full(mask, "cross-attention")
-        out = attention_full(q, *cross_kv, cfg.attn_softcap)
+        out = attention_scores(q, *cross_kv, mask, cfg.attn_softcap,
+                               cfg.attn_q_chunk)
         return _out_project(params, out), None
     k, v = compute_kv(params, x, cfg)
     if rope:
@@ -324,9 +363,9 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
         q = rotate(q, rot)
         k = rotate(k, rot)
     if kv_cache is None:
-        _refuse_unless_full(mask, "attention without a cache")
-        return _out_project(params, attention_full(q, k, v,
-                                                   cfg.attn_softcap)), (k, v)
+        out = attention_scores(q, k, v, mask, cfg.attn_softcap,
+                               cfg.attn_q_chunk)
+        return _out_project(params, out), (k, v)
 
     k_cache, v_cache = kv_cache
     _cache_write(k_cache, k, cache_positions)
@@ -362,11 +401,6 @@ def _out_project(params, out: torch.Tensor) -> torch.Tensor:
     return out.reshape(*out.shape[:-2], h * hd) @ params["wo"].reshape(h * hd, d)
 
 
-def _refuse_unless_full(mask: MaskSpec, what: str) -> None:
-    if mask.kind != "full":
-        raise ValueError(f"{what} takes MaskSpec('full'), got {mask.kind!r}")
-
-
 def compute_kv(params, x: torch.Tensor, cfg: ModelConfig):
     """The K/V projections (and biases) of x, no rope: whisper's cross-K/V
     precompute, as the JAX ``compute_kv``."""
@@ -378,18 +412,37 @@ def compute_kv(params, x: torch.Tensor, cfg: ModelConfig):
     return k, v
 
 
-def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   softcap: Optional[float] = None) -> torch.Tensor:
-    """Bidirectional attention of q (B, Sq, Hq, D) over k, v (B, Sk, Hkv, D)
-    as the JAX ``_attn_block`` computes it under ``MaskSpec("full")``:
-    logits in f32, softmax in f32, the probabilities cast to V's dtype for
-    the product, which accumulates in f32; the output in q's dtype."""
+def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: MaskSpec, softcap: Optional[float] = None,
+                     q_chunk: int = 512) -> torch.Tensor:
+    """Attention of q (B, Sq, Hq, D) over k, v (B, Sk, Hkv, D) under a
+    "causal" or "full" ``mask``, as the JAX ``attention_scores`` computes
+    it: the queries in chunks of ``q_chunk`` (a ragged last chunk where
+    JAX asserts Sq % q_chunk == 0; each query's row is the same either
+    way), each chunk through ``_attn_block``."""
+    sq = q.shape[1]
+    if sq <= q_chunk:
+        return _attn_block(q, k, v, mask, 0, softcap)
+    return torch.cat([_attn_block(q[:, i:i + q_chunk], k, v, mask, i,
+                                  softcap)
+                      for i in range(0, sq, q_chunk)], dim=1)
+
+
+def _attn_block(q, k, v, mask: MaskSpec, q_start: int, softcap):
+    """The JAX ``_attn_block``: logits in f32 scaled by 1/sqrt(D),
+    softcapped, masked to -1e30, softmax in f32, the probabilities cast to
+    V's dtype for the product, which accumulates in f32; the output in q's
+    dtype."""
     b, sq, hq, d = q.shape
-    hkv = k.shape[2]
+    sk, hkv = k.shape[1], k.shape[2]
     qg = q.reshape(b, sq, hkv, hq // hkv, d).float()
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) \
         * (1.0 / math.sqrt(d))
-    probs = torch.softmax(_soft_cap(logits, softcap), dim=-1)
+    logits = _soft_cap(logits, softcap)
+    ok = mask.block(sq, sk, q_start, q.device)
+    if ok is not None:
+        logits = logits.masked_fill(~ok, -1e30)
+    probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
                        v.float())
     return out.reshape(b, sq, hq, d).to(q.dtype)
@@ -521,3 +574,48 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     table = params.get("unembed", params["table"])
     logits = (x @ table.t()).float()
     return _soft_cap(logits, cfg.final_softcap)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of logits (B, S, V) f32 against labels (B, S):
+    ``logsumexp - logits[label]``, the JAX ``softmax_xent``'s function
+    without its (B, S, V) one-hot."""
+    lse = torch.logsumexp(logits, dim=-1)
+    true = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - true).mean()
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation (the JAX ``jax.checkpoint`` policies)
+# ---------------------------------------------------------------------------
+
+# the ops whose outputs the "dots" policy keeps (JAX's
+# ``dots_with_no_batch_dims_saveable`` keeps the projections' dots; here
+# every matrix product, the attention's batched ones too)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, policy: str):
+    """``fn`` under a rematerialisation ``policy``, the counterpart of
+    ``transformer._remat`` / ``jax.checkpoint``: "none" runs it as it is;
+    "full" keeps only its inputs and recomputes the rest in the backward
+    pass; "dots" keeps the outputs of the matrix products as well and
+    recomputes the rest. The values and gradients are the same under each."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat policy must be none, full or dots, got "
+                     f"{policy!r}")

@@ -20,7 +20,7 @@ expert's weights once), a prefill of 8 x 256 tokens two experts at a time.
 
 The expert-parallel path (``apply_moe_ep``: the dispatch indices and the
 all-to-alls over a mesh) waits for the multi-device slice (ROADMAP.md,
-queue 1 item 7); ``apply_moe`` with ``ep`` raises.
+queue 1 item 5); ``apply_moe`` with ``ep`` raises.
 """
 from __future__ import annotations
 
@@ -145,6 +145,6 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
     if ep is not None:
         raise NotImplementedError(
             "apply_moe(ep=...): expert parallelism across devices is not "
-            "ported yet (ROADMAP.md, queue 1 item 7); the port computes the "
+            "ported yet (ROADMAP.md, queue 1 item 5); the port computes the "
             "MoE layer on one device (ep=None)")
     return apply_moe_reference(params, x, cfg)

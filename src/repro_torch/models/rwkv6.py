@@ -7,8 +7,9 @@ per-channel decay w_t, and the WKV recurrence
     out_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T),   S_t = diag(w_t) S_{t-1} + k_t v_t^T
 
 per head of 64 (``kernels.ops.wkv6_op``: the Hopper kernel on the card, the
-JAX model's plain forms on the CPU). Channel-mixing: squared-ReLU MLP with
-token shift. Parameters keep the JAX pytree (a stacked leading layer axis;
+JAX model's plain forms on the CPU; the training forward takes the plain
+forms on both). Channel-mixing: squared-ReLU MLP with token shift.
+Parameters keep the JAX pytree (a stacked leading layer axis;
 ``decay_base`` and ``bonus_u`` stay f32 in any model dtype).
 
 State per layer (decode is O(1) in context length):
@@ -20,20 +21,24 @@ Entry points:
   init_state(cfg, batch, device)               -> state
   prefill(params, state, tokens, lengths, cfg) -> (last_logits, state)
   decode(params, state, tokens, lengths, cfg)  -> (logits, state)
+  forward_train(params, tokens, cfg)           -> logits (B, S, V)
+  lm_loss(params, batch, cfg)                  -> scalar
 
-Unlike the JAX functions, these update ``state`` IN PLACE and return the
-same dict.
+Unlike the JAX functions, prefill and decode update ``state`` IN PLACE and
+return the same dict.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+# ModelConfig only through L: kernels.ref imports this module, possibly
+# while models.layers is still half-imported
 from repro_torch.models import layers as L
-from repro_torch.models.layers import ModelConfig
 
 LORA_DECAY = 64
 LORA_MIX = 32
@@ -41,7 +46,7 @@ N_MIX = 5  # w, k, v, r, g
 HEAD_SIZE = 64
 
 
-def head_dims(cfg: ModelConfig) -> tuple[int, int]:
+def head_dims(cfg: L.ModelConfig) -> tuple[int, int]:
     return cfg.d_model // HEAD_SIZE, HEAD_SIZE
 
 
@@ -59,7 +64,7 @@ def _dinit(gen, shape, dtype, scale=None, *, stack: int):
     return (w * s).to(dtype)
 
 
-def init_lm(gen: torch.Generator, cfg: ModelConfig):
+def init_lm(gen: torch.Generator, cfg: L.ModelConfig):
     """Random weights from ``gen`` (on the device they go to), with the JAX
     initialisers' distributions."""
     n, d, dt, dev = cfg.num_layers, cfg.d_model, cfg.dtype, gen.device
@@ -100,7 +105,7 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig):
             "final_norm": L.init_norm(cfg, dev)}
 
 
-def init_state(cfg: ModelConfig, batch: int, device):
+def init_state(cfg: L.ModelConfig, batch: int, device):
     nh, hd = head_dims(cfg)
     lead = (cfg.num_layers, batch)
     return {
@@ -114,6 +119,88 @@ def init_state(cfg: ModelConfig, batch: int, device):
 
 
 # ---------------------------------------------------------------------------
+# WKV6: out_t = r_t^T (S + diag(u) k_t v_t^T),  S <- diag(w_t) S + k_t v_t^T
+# r, k, v, w: (B, T, H, D); u: (H, D) f32; s0: (B, H, D, D) f32 [key, value]
+# (the plain forms, differentiable; ``kernels.ref`` picks among them on the
+# CPU, the training forward calls them directly)
+# ---------------------------------------------------------------------------
+
+
+def wkv_scan(r, k, v, w, u, s0):
+    """Sequential WKV (the oracle). Returns (out (B, T, H, D), sT) in f32."""
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    s = s0.float()
+    outs = []
+    for t in range(r.shape[1]):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        outs.append(torch.einsum("bhi,bhij->bhj", rf[:, t], s + uf * kv))
+        s = wf[:, t, :, :, None] * s + kv
+    return torch.stack(outs, dim=1), s
+
+
+def wkv_chunked(r, k, v, w, u, s0, chunk: int = 64):
+    """Chunked-parallel WKV: intra-chunk masked products, the state carried
+    across chunks; exponents relative to the chunk's midpoint cumulative
+    decay (f32-safe under the model's decay clip). Matches wkv_scan."""
+    b, t, h, d = r.shape
+    if t % chunk:
+        raise ValueError(f"wkv_chunked: T={t} is not a multiple of {chunk}")
+    n = t // chunk
+
+    def to_chunks(a):                                   # (n, B, H, C, D)
+        return a.float().reshape(b, n, chunk, h, d).permute(1, 0, 3, 2, 4)
+
+    rc, kc, vc, wc = map(to_chunks, (r, k, v, w))
+    logw = torch.log(wc.clamp_min(1e-38))
+    cum = logw.cumsum(dim=-2)                           # inclusive
+    total = cum[..., -1:, :]
+    mid = cum[..., chunk // 2:chunk // 2 + 1, :]
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=r.device), diagonal=-1)
+    uf = u.float()[None, :, None, :]
+    s = s0.float()
+    outs = []
+    for i in range(n):
+        rt, kt, vt = rc[i], kc[i], vc[i]
+        cum_prev = cum[i] - logw[i]
+        out_state = torch.einsum("bhcd,bhde->bhce",
+                                 rt * torch.exp(cum_prev), s)
+        r_dec = rt * torch.exp(cum_prev - mid[i])
+        kj = kt * torch.exp(mid[i] - cum[i])
+        att = torch.einsum("bhid,bhjd->bhij", r_dec, kj)
+        att = torch.where(mask, att, torch.zeros((), device=r.device))
+        diag = torch.einsum("bhid,bhid->bhi", rt * uf, kt)
+        out_intra = torch.einsum("bhij,bhjd->bhid", att, vt) \
+            + diag[..., None] * vt
+        k_dec = kt * torch.exp(total[i] - cum[i])
+        s = torch.exp(total[i].squeeze(-2))[..., None] * s + torch.einsum(
+            "bhcd,bhce->bhde", k_dec, vt)
+        outs.append(out_state + out_intra)
+    out = torch.stack(outs)                             # (n, B, H, C, D)
+    return out.permute(1, 0, 3, 2, 4).reshape(b, t, h, d), s
+
+
+def wkv_sequence(r, k, v, w, u, s0):
+    """The form the JAX ``_time_mix`` picks in its "chunked" mode:
+    ``wkv_chunked`` when T is a positive multiple of 64, ``wkv_scan``
+    otherwise."""
+    t = r.shape[1]
+    if t % 64 == 0 and t >= 64:
+        return wkv_chunked(r, k, v, w, u, s0)
+    return wkv_scan(r, k, v, w, u, s0)
+
+
+def wkv_decode(r, k, v, w, u, s):
+    """Single-token WKV. r, k, v, w: (B, H, D); s: (B, H, D, D)."""
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    kv = kf[..., :, None] * vf[..., None, :]
+    out = torch.einsum("bhi,bhij->bhj", rf,
+                       s + u.float()[None, :, :, None] * kv)
+    return out, wf[..., None] * s + kv
+
+
+# ---------------------------------------------------------------------------
 # block
 # ---------------------------------------------------------------------------
 
@@ -123,7 +210,7 @@ def _token_shift(x, last):
     return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def _time_mix(p, x, last, wkv_state, cfg: ModelConfig, *, seq_mode: str):
+def _time_mix(p, x, last, wkv_state, cfg: L.ModelConfig, *, seq_mode: str):
     b, t, d = x.shape
     nh, hd = head_dims(cfg)
     xx = _token_shift(x, last) - x
@@ -144,7 +231,11 @@ def _time_mix(p, x, last, wkv_state, cfg: ModelConfig, *, seq_mode: str):
     # exponents stay f32-safe; every form sees the same w
     w = torch.exp(-torch.exp(decay.clamp(-20.0, 0.5))).view(b, t, nh, hd)
 
-    out, new_s = ops.wkv6_op(r, k, v, w, p["bonus_u"], wkv_state, seq_mode)
+    if seq_mode == "train":
+        out, new_s = wkv_sequence(r, k, v, w, p["bonus_u"], wkv_state)
+    else:
+        out, new_s = ops.wkv6_op(r, k, v, w, p["bonus_u"], wkv_state,
+                                 seq_mode)
 
     # per-head group norm (population variance), in f32
     mu = out.mean(dim=-1, keepdim=True)
@@ -163,7 +254,7 @@ def _channel_mix(p, x, last):
     return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1, :]
 
 
-def _block(bp, x, state, cfg: ModelConfig, seq_mode: str):
+def _block(bp, x, state, cfg: L.ModelConfig, seq_mode: str):
     ts_tm, ts_cm, wkv_s = state
     h = L.apply_norm(bp["norm_tm"], x, cfg)
     tm_out, new_ts_tm, new_wkv = _time_mix(bp["tm"], h, ts_tm, wkv_s, cfg,
@@ -174,7 +265,7 @@ def _block(bp, x, state, cfg: ModelConfig, seq_mode: str):
     return x + cm_out, (new_ts_tm, new_ts_cm, new_wkv)
 
 
-def _run(params, x, state, cfg: ModelConfig, seq_mode: str):
+def _run(params, x, state, cfg: L.ModelConfig, seq_mode: str):
     """The blocks in order (``lax.scan`` over layers becomes a loop); each
     layer's state is overwritten in place."""
     names = ("ts_tm", "ts_cm", "wkv")
@@ -191,7 +282,7 @@ def _run(params, x, state, cfg: ModelConfig, seq_mode: str):
 # ---------------------------------------------------------------------------
 
 
-def prefill(params, state, tokens, lengths, cfg: ModelConfig):
+def prefill(params, state, tokens, lengths, cfg: L.ModelConfig):
     """Prefill of tokens (B, S) from ``state``. Linear-state models have no
     per-position cache: the executor runs requests one at a time, so every
     row's tokens are real. Returns (logits at lengths-1 (B, V), state)."""
@@ -204,7 +295,33 @@ def prefill(params, state, tokens, lengths, cfg: ModelConfig):
     return L.unembed(params["embed"], last, cfg)[:, 0], state
 
 
-def decode(params, state, tokens, lengths, cfg: ModelConfig):
+def _train_block(bp, x, state, cfg: L.ModelConfig):
+    return _block(bp, x, state, cfg, "train")[0]
+
+
+def forward_train(params, tokens, cfg: L.ModelConfig):
+    """tokens (B, S) -> logits (B, S, V) f32, as the JAX ``forward_train``:
+    every block from a fresh (zero) state, which nothing writes, under
+    full rematerialisation (JAX's ``jax.checkpoint`` with no policy); the
+    WKV through ``wkv_sequence``'s plain forms, never the kernel."""
+    x = L.embed(params["embed"], tokens, cfg)
+    b = x.shape[0]
+    nh, hd = head_dims(cfg)
+    shift = torch.zeros((b, cfg.d_model), dtype=cfg.dtype, device=x.device)
+    s0 = torch.zeros((b, nh, hd, hd), dtype=torch.float32, device=x.device)
+    block = L.remat(functools.partial(_train_block, cfg=cfg), "full")
+    for bp in L.unstack(params["blocks"]):
+        x = block(bp, x, (shift, shift, s0))
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return L.unembed(params["embed"], x, cfg)
+
+
+def lm_loss(params, batch, cfg: L.ModelConfig):
+    return L.softmax_xent(forward_train(params, batch["tokens"], cfg),
+                          batch["labels"])
+
+
+def decode(params, state, tokens, lengths, cfg: L.ModelConfig):
     """One decode step of tokens (B,); ``lengths`` is unused (the state is
     the whole context). Returns (logits (B, V), state)."""
     x = L.embed(params["embed"], tokens[:, None], cfg)

@@ -20,15 +20,21 @@ Entry points:
                                                   -> (last_logits, cache)
   prefill_chunk(params, cache, chunk, starts, cfg, take) -> (logits, cache)
   decode(params, cache, tokens, lengths, cfg)     -> (logits, cache)
+  forward_train(params, tokens, cfg, prefix_embeds=None) -> logits (B, S, V)
+  lm_loss(params, batch, cfg)                     -> scalar
 
-Unlike the JAX functions, these write the new K/V into ``cache`` IN PLACE
-and return the same dict. Each entry point builds what its layers share
-once (the rope tables and, for a decode, the block table), and
-``with_layer_views`` gives a params object its per-layer views once, so a
-step's host work is one pass over the layers.
+Unlike the JAX functions, the serving entry points write the new K/V into
+``cache`` IN PLACE and return the same dict. Each entry point builds what
+its layers share once (the rope tables and, for a decode, the block
+table), and ``with_layer_views`` gives a params object its per-layer views
+once, so a step's host work is one pass over the layers. The training
+forward has no cache: each block attends over its own K/V
+(``layers.attention_scores``, plain torch ops under autograd) and runs
+under ``layers.remat``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -283,3 +289,42 @@ def decode(params, cache, tokens, lengths, cfg: ModelConfig):
                            cache_positions=lengths, lengths=lengths)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.unembed(params["embed"], x, cfg)[:, 0], cache
+
+
+def _train_block(bp, x, cfg: ModelConfig, *, positions, window, tables):
+    return _block_fn(bp, x, cfg, positions=positions,
+                     mask=MaskSpec("causal"), window=window, kv=None,
+                     cache_positions=None, tables=tables)[0]
+
+
+def forward_train(params, tokens, cfg: ModelConfig,
+                  prefix_embeds: Optional[torch.Tensor] = None):
+    """tokens (B, S) (after a VLM's ``prefix_embeds`` (B, P, F)) -> logits
+    (B, P + S, V) f32, as the JAX ``forward_train``: no cache, every layer
+    under ``MaskSpec("causal")`` with its window, each block under
+    ``layers.remat(cfg.remat_policy)``. The per-layer views are built here,
+    in the call, by ``layers.unstack`` (views cached on a params object
+    across steps would hold a freed graph)."""
+    x = _embed_inputs(params, tokens, cfg, prefix_embeds)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    tables = {"rope": L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)}
+    for bp, window in zip(L.unstack(params["blocks"]), layer_windows_py(cfg)):
+        block = L.remat(functools.partial(
+            _train_block, cfg=cfg, positions=positions, window=window,
+            tables=tables), cfg.remat_policy)
+        x = block(bp, x)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return L.unembed(params["embed"], x, cfg)
+
+
+def lm_loss(params, batch, cfg: ModelConfig):
+    """batch {tokens (B, S), labels (B, S)[, prefix_embeds]} -> the mean
+    cross-entropy; a VLM's on the text positions only (the last
+    ``labels.shape[1]``)."""
+    logits = forward_train(params, batch["tokens"], cfg,
+                           prefix_embeds=batch.get("prefix_embeds"))
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, -labels.shape[1]:]
+    return L.softmax_xent(logits, labels)

@@ -5,7 +5,7 @@ as in JAX: ``frames`` are precomputed frame embeddings (B, S_enc, d_model);
 positions are sinusoidal. The encoder's self-attention and the decoder's
 cross-attention are bidirectional (``MaskSpec("full")``), which the JAX
 package computes through XLA, not a Pallas kernel: here they are plain
-torch ops (``layers.attention_full``). The decoder's self-attention runs
+torch ops (``layers.attention_scores``). The decoder's self-attention runs
 the kernels as the dense model's does: a causal prefill through the
 chunked-prefill kernel, a ``lengths`` decode through the paged one.
 
@@ -18,13 +18,17 @@ Entry points:
   init_cache(cfg, batch, max_len, enc_len, device)       -> cache
   prefill(params, cache, frames, tokens, lengths, cfg)   -> (last_logits, cache)
   decode(params, cache, tokens, lengths, cfg)            -> (logits, cache)
+  forward_train(params, frames, tokens, cfg)             -> logits (B, S, V)
+  lm_loss(params, batch, cfg)                            -> scalar
 
-Unlike the JAX functions, these update ``cache`` IN PLACE and return the
-same dict: the self K/V are written into it, and a prefill puts its cross
-K/V in the dict in place of the ones there (their S_enc is the frames', as
-in JAX).
+Unlike the JAX functions, prefill and decode update ``cache`` IN PLACE and
+return the same dict: the self K/V are written into it, and a prefill puts
+its cross K/V in the dict in place of the ones there (their S_enc is the
+frames', as in JAX).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -85,8 +89,7 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b, s, d = frames.shape
     x = frames + sinusoid_positions(s, d, frames.dtype, frames.device)[None]
     positions = torch.arange(s, device=frames.device)[None].expand(b, s)
-    for i in range(cfg.encoder_layers or cfg.num_layers):
-        bp = L.layer(params["enc_blocks"], i)
+    for bp in L.unstack(params["enc_blocks"]):
         h = L.apply_norm(bp["norm_attn"], x, cfg)
         attn, _ = L.apply_attention(bp["attn"], h, cfg, positions=positions,
                                     mask=MaskSpec("full"), rope=False)
@@ -98,8 +101,8 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def compute_cross_kv(params, enc_out: torch.Tensor, cfg: ModelConfig):
     """Per-decoder-layer K/V over the encoder output: (L, B, S_enc, Hkv, D)."""
-    kvs = [L.compute_kv(L.layer(params["dec_blocks"], i)["cross_attn"],
-                        enc_out, cfg) for i in range(cfg.num_layers)]
+    kvs = [L.compute_kv(p, enc_out, cfg)
+           for p in L.unstack(params["dec_blocks"]["cross_attn"])]
     return (torch.stack([k for k, _ in kvs]),
             torch.stack([v for _, v in kvs]))
 
@@ -186,3 +189,41 @@ def decode(params, cache, tokens, lengths, cfg: ModelConfig):
                             cache_positions=lengths, lengths=lengths)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.unembed(params["embed"], x, cfg)[:, 0], cache
+
+
+def forward_train(params, frames, tokens, cfg: ModelConfig):
+    """Teacher forcing, as the JAX ``forward_train``: frames (B, S_enc, d)
+    through the encoder ("full" attention), the cross K/V, then tokens
+    (B, S) through the decoder, whose self-attention is causal over its own
+    K/V (the JAX model's attention over a zero cache of S rows), each
+    decoder block under full rematerialisation. Returns logits (B, S, V)."""
+    enc = encode(params, frames, cfg)
+    ck, cv = compute_cross_kv(params, enc, cfg)
+    b, s = tokens.shape
+    zero = torch.zeros((b,), dtype=torch.int32, device=tokens.device)
+    x = _dec_embed(params, tokens, zero, cfg)
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    for i, bp in enumerate(L.unstack(params["dec_blocks"])):
+        block = L.remat(functools.partial(
+            _dec_block, cfg=cfg, positions=positions,
+            mask=MaskSpec("causal"), kv=None, cross_kv=(ck[i], cv[i]),
+            cache_positions=None, lengths=None, tables={}), "full")
+        x = block(bp, x)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return L.unembed(params["embed"], x, cfg)
+
+
+def lm_loss(params, batch, cfg: ModelConfig):
+    """batch {frames, tokens (B, S), labels (B, S)} -> the mean
+    cross-entropy. Tokens and labels of different widths raise: the
+    synthetic stream gives S + 1 token columns against S labels when its
+    ``seq`` is below ``dec_len``, where the JAX loss fails on the shapes
+    (ROADMAP.md, deliberate deviations)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    if tokens.shape[1] != labels.shape[1]:
+        raise ValueError(
+            f"whisper lm_loss: {tokens.shape[1]} token columns against "
+            f"{labels.shape[1]} labels (a synthetic stream whose seq is "
+            "below its dec_len gives seq + 1 tokens); use seq >= dec_len")
+    return L.softmax_xent(forward_train(params, batch["frames"], tokens, cfg),
+                          labels)

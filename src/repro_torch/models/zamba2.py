@@ -18,11 +18,15 @@ Entry points:
   init_state(cfg, batch, max_len, device)        -> state
   prefill(params, state, tokens, lengths, cfg)   -> (last_logits, state)
   decode(params, state, tokens, lengths, cfg)    -> (logits, state)
+  forward_train(params, tokens, cfg)             -> logits (B, S, V)
+  lm_loss(params, batch, cfg)                    -> scalar
 
-Unlike the JAX functions, these update ``state`` IN PLACE and return the
-same dict.
+Unlike the JAX functions, prefill and decode update ``state`` IN PLACE and
+return the same dict.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -136,3 +140,38 @@ def decode(params, state, tokens, lengths, cfg: ModelConfig):
                     lengths=lengths)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.unembed(params["embed"], x, cfg)[:, 0], state
+
+
+def _train_mamba(bp, x, state, cfg: ModelConfig):
+    return M2.apply_block(bp, x, state, cfg, "chunked")[0]
+
+
+def forward_train(params, tokens, cfg: ModelConfig):
+    """tokens (B, S) -> logits (B, S, V) f32, as the JAX ``forward_train``:
+    every mamba block from a fresh (zero) state in "chunked" mode (the SSD's
+    chunked form when S % 64 == 0, the scan's function otherwise) under
+    full rematerialisation, nothing written; the shared block's attention
+    over its own K/V under the causal mask (``layers.attention_scores``),
+    which is the JAX model's attention over a zero cache of S rows."""
+    x = L.embed(params["embed"], tokens, cfg)
+    b, s, _ = x.shape
+    x0 = x
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    tables = {"rope": L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)}
+    block = L.remat(functools.partial(
+        _train_mamba, state=M2.init_state(cfg, b, x.device), cfg=cfg), "full")
+    blocks = L.unstack(params["blocks"])
+    for inv in range(n_shared_invocations(cfg)):
+        lo = inv * cfg.attn_every
+        for bp in blocks[lo:lo + cfg.attn_every]:
+            x = x + block(bp, x)
+        x = _shared_block(params["shared"], x, x0, cfg, positions=positions,
+                          mask=MaskSpec("causal"), kv=None,
+                          cache_positions=None, lengths=None, tables=tables)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return L.unembed(params["embed"], x, cfg)
+
+
+def lm_loss(params, batch, cfg: ModelConfig):
+    return L.softmax_xent(forward_train(params, batch["tokens"], cfg),
+                          batch["labels"])

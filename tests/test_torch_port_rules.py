@@ -1,5 +1,7 @@
 """PyTorch port, its rules: nothing under src/repro_torch/ (nor
-chip_smoke.py) imports jax or the JAX package; each carried-over module
+chip_smoke.py) imports jax, the JAX package, or msgpack and ml_dtypes
+(the card's machine has neither; the checkpoints write bf16 as raw
+words); each carried-over module
 equals its src/repro original with ``repro.`` replaced by
 ``repro_torch.``, apart from two reviewed deltas (``perf/__init__.py``
 adds the card's spec, ``serving/kvcache.py`` drops the paged store);
@@ -46,7 +48,8 @@ def _imported_roots(path: Path) -> set:
     "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_repro(path):
-    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "msgpack",
+                                   "ml_dtypes"}
     assert not bad, f"{path.name} imports {sorted(bad)}"
 
 
@@ -90,6 +93,14 @@ def test_entry_points_need_a_card_unless_asked(monkeypatch):
     execs = ClusterRealExecutors(get_smoke("qwen2-1.5b"), 1, max_len=64,
                                  warmup=False, device="cpu")
     assert execs.execs[0].cache["k"].device.type == "cpu"
+    from repro_torch.examples import train_tiny
+    from repro_torch.launch import train
+    for main in (train.main, train_tiny.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--device", "cuda"] if main is train_tiny.main else [])
+    loss = train.main(["--device", "cpu", "--arch", "qwen2-1.5b",
+                       "--steps", "2", "--batch", "2", "--seq", "16"])
+    assert loss == loss           # trained on the CPU: a finite loss
 
 
 def test_kernel_input_checks_refuse_what_the_kernels_do_not_take():

@@ -28,6 +28,7 @@ from repro_torch.core.request import Request, SLOSpec  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import wkv6 as twkv  # noqa: E402
 from repro_torch.models import api as tapi  # noqa: E402
+from repro_torch.models import rwkv6 as trwkv  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serving.engine import IterationPlan  # noqa: E402
 from repro_torch.serving.executor import ClusterRealExecutors  # noqa: E402
@@ -85,11 +86,11 @@ SWEEP = [
 def test_plain_wkv_matches_jax_and_the_pallas_kernel(b, t, h, d, chunk,
                                                      dtype):
     jargs, targs = _mk(7, b, t, h, d, dtype)
-    o_scan, s_scan = ref.wkv_scan(*targs)
+    o_scan, s_scan = trwkv.wkv_scan(*targs)
     jo, js = jrwkv.wkv_scan(*jargs)
     _close(o_scan, jo)
     _close(s_scan, js)
-    o_chunk, s_chunk = ref.wkv_chunked(*targs, chunk=chunk)
+    o_chunk, s_chunk = trwkv.wkv_chunked(*targs, chunk=chunk)
     jo, js = jrwkv.wkv_chunked(*jargs, chunk=chunk)
     _close(o_chunk, jo)
     _close(s_chunk, js, STATE_TOL)
@@ -108,7 +109,7 @@ def test_plain_decode_matches_jax():
     jr, jk, jv, jw, ju, js0 = jargs
     jo, js = jrwkv.wkv_decode(jr[:, 0], jk[:, 0], jv[:, 0], jw[:, 0], ju, js0)
     r, k, v, w, u, s0 = targs
-    o, s = ref.wkv_decode(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, s0)
+    o, s = trwkv.wkv_decode(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, s0)
     _close(o, jo)
     _close(s, js)
 
@@ -123,9 +124,10 @@ def test_ragged_t_and_the_state_carried_across_calls():
     _close(o, jo)
     _close(s, js)
     r, k, v, w, u, s0 = targs
-    o1, s1 = ref.wkv_chunked(r[:, :64], k[:, :64], v[:, :64], w[:, :64], u,
-                             s0)
-    o2, s2 = ref.wkv_scan(r[:, 64:], k[:, 64:], v[:, 64:], w[:, 64:], u, s1)
+    o1, s1 = trwkv.wkv_chunked(r[:, :64], k[:, :64], v[:, :64], w[:, :64],
+                               u, s0)
+    o2, s2 = trwkv.wkv_scan(r[:, 64:], k[:, 64:], v[:, 64:], w[:, 64:], u,
+                            s1)
     _close(torch.cat([o1, o2], dim=1), o, KERNEL_TOL)
     _close(s2, s, STATE_TOL)
 
@@ -205,8 +207,8 @@ def test_wkv6_op_routes_cpu_tensors_to_the_jax_models_form(monkeypatch, mode,
     monkeypatch.setattr(twkv, "wkv6", no_kernel)
     called = []
     for name in ("wkv_decode", "wkv_chunked", "wkv_scan"):
-        real = getattr(ref, name)
-        monkeypatch.setattr(ref, name, lambda *a, _n=name, _r=real, **k:
+        real = getattr(trwkv, name)
+        monkeypatch.setattr(trwkv, name, lambda *a, _n=name, _r=real, **k:
                             (called.append(_n), _r(*a, **k))[1])
     jargs, targs = _mk(5, 2, t, 2)
     out, s = ops.wkv6_op(*targs, mode)

@@ -124,16 +124,29 @@ def test_full_mask_attention_matches_jax(cross, heads):
 
 
 def test_attention_without_a_cache_takes_only_the_full_mask(models):
+    """Without a cache, attention takes the kinds that need none: "full"
+    (the encoder, cross-attention) and, since the training forwards, the
+    causal mask (held to the JAX ``apply_attention`` here); a cache's kind
+    ("lengths") raises, for self- and cross-attention."""
     jcfg, tcfg, jm, tm, jp, tp = models
-    x = torch.zeros((1, 3, tcfg.d_model))
+    x = np.random.default_rng(5).normal(size=(1, 3, tcfg.d_model)).astype(
+        np.float32)
     attn = {k: v[0] for k, v in tp["enc_blocks"]["attn"].items()}
+    jattn = jax.tree.map(lambda a: a[0], jp["enc_blocks"]["attn"])
     pos = torch.arange(3)[None]
+    got, _ = TL.apply_attention(attn, torch.from_numpy(x), tcfg,
+                                positions=pos, mask=TL.MaskSpec("causal"),
+                                rope=False)
+    want, _ = JL.apply_attention(jattn, jnp.asarray(x), jcfg,
+                                 positions=jnp.asarray(pos.numpy()),
+                                 mask=JL.MaskSpec("causal"), rope=False)
+    _close(got, want)
     with pytest.raises(ValueError, match="full"):
-        TL.apply_attention(attn, x, tcfg, positions=pos,
-                           mask=TL.MaskSpec("causal"), rope=False)
+        TL.apply_attention(attn, torch.from_numpy(x), tcfg, positions=pos,
+                           mask=TL.MaskSpec("lengths"), rope=False)
     kv = (torch.zeros((1, 5, 4, 16)),) * 2
     with pytest.raises(ValueError, match="full"):
-        TL.apply_attention(attn, x, tcfg, positions=pos,
+        TL.apply_attention(attn, torch.from_numpy(x), tcfg, positions=pos,
                            mask=TL.MaskSpec("lengths"), cross_kv=kv)
 
 
