@@ -175,6 +175,30 @@ Phases (one line each, a non-zero exit on any failure):
             grad; a qwen2 SMOKE run of 6 steps on the card restarted from a
             checkpoint at step 3 ends bit for bit where an uninterrupted run
             does
+  moe_ep    arctic-480b's MoE layer at full width (128 experts of d_ff
+            4864, top-2, bf16) on 8 x 256 prefill tokens and an 8-token
+            decode: the single-process apply_moe_reference first (outputs
+            kept on the host), the same weights through an NCCL group of
+            world size 1, then the experts split over the (1, 4) worker
+            mesh, 32 a rank, in 4 processes on the one card under gloo
+            (launch.dist.spawn; gloo stages CUDA tensors through the host),
+            each drawing only its own experts: allgather held to the
+            reference, alltoall on the tokens that kept their assignments
+            and routes (drops reported), fused_a2a bit-equal to the
+            per-axis all-to-alls; ms per layer per mode, each rank's peak
+            memory
+  model_moe_ep  arctic-480b at full width, 2 of 35 layers, through
+            api.prefill (4 rows of 256) and 4 api.decode steps with ep over
+            the same 4 ranks (prefill allgather, decode alltoall), after a
+            single-process run of the same weights (freed before the ranks
+            start): both attention kernels' tensor-core variants launch in
+            every rank (counts zeroed just before, read just after), logits
+            held where the routes agree, as model_moe holds them
+  shard_restore  full-width qwen2-1.5b saved, then restored on the 4 ranks
+            under param_specs for the (1, 4) worker mesh (each rank reads
+            its slices): every local shard byte-equal to its slice of the
+            saved tensor, distribute_tensor(src_data_rank=None) slicing the
+            embedding the same way; local bytes against the replicated size
 Each phase prints its seconds. Each serve phase zeroes the kernels' launch counts just before it and reads
 them just after, per device kernel variant too (a CUDA graph replay adds
 what its capture counted): the dense paths must launch the tensor-core
@@ -210,6 +234,8 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+import torch.distributed as tdist
+from torch.distributed.tensor import distribute_tensor
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -224,10 +250,15 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.request import Request, SLOSpec  # noqa: E402
 from repro_torch.kernels import (build, chunked_prefill, ops,  # noqa: E402
                                  paged_attention, ref, wkv6)
+from repro_torch.launch import dist as dist_launch  # noqa: E402
+from repro_torch.launch import mesh as mesh_launch  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
-from repro_torch.models import mamba2, moe, rwkv6, transformer  # noqa: E402
-from repro_torch.models.layers import decode_page_size, to_e4m3  # noqa: E402
+from repro_torch.models import (mamba2, moe, rwkv6, sharding,  # noqa: E402
+                                transformer)
+from repro_torch.models.layers import (MetaGenerator,  # noqa: E402
+                                       _dense_init, decode_page_size,
+                                       to_e4m3)
 from repro_torch.perf import H100, CostModel, WorkerSpec  # noqa: E402
 from repro_torch.perf.calibrate import (calibrate_hardware,  # noqa: E402
                                         calibrate_interference)
@@ -3236,6 +3267,483 @@ def phase_train_families() -> None:
           "left the uninterrupted one")
 
 
+# --------------------------------------------------------- multi-device
+
+# The multi-device phases: four ranks on the one card, each its own
+# process (NCCL refuses two ranks on one device), under gloo, which stages
+# CUDA tensors through the host for its collectives; NCCL at world size 1
+# in this process. The ranks start through launch.dist (a FileStore under
+# build/, which git ignores) and write their results beside it.
+EP_WORLD = 4
+EP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dist"
+EP_SEED = 0
+EP_PREFILL = (8, 256)              # rows x tokens through the MoE layer
+EP_DECODE = 8                      # decode tokens (one a row)
+EP_LAYER_MODES = {"allgather": dict(ep_mode="allgather"), "alltoall": {},
+                  "fused": dict(fused_a2a=True)}
+EP_REPS = 3
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+GLOO = "gloo over the host, 4 ranks on one card (not a measure of NCCL)"
+
+
+def _dist_dir(phase: str) -> Path:
+    d = EP_DIR / phase
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def _spawn(fn, root: Path, *args) -> list:
+    """``fn(rank, root, *args)`` in ``EP_WORLD`` gloo ranks; each rank's
+    ``rank<r>.pt``."""
+    dist_launch.spawn(fn, EP_WORLD, backend="gloo",
+                      init_method=f"file://{root}/store",
+                      args=(str(root),) + args)
+    return [torch.load(root / f"rank{r}.pt") for r in range(EP_WORLD)]
+
+
+def _rank_setup():
+    """A rank's card and mesh: the (1, 4) worker mesh, experts over both
+    axes and the batch over 'data' (the JAX dry-run's ``_ep_for``)."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = mesh_launch.make_worker_mesh(EP_WORLD)
+    return mesh, sharding.make_rules(mesh)
+
+
+def _ep_info(mesh, rules, **kw) -> moe.EPInfo:
+    return moe.EPInfo(mesh=mesh, ep_axes=rules.ep_axes,
+                      batch_axes=rules.batch_axes, **kw)
+
+
+def _own_experts(info: moe.EPInfo, cfg) -> range:
+    _, l_e = moe.ep_padded_experts(cfg.num_experts, info.n_devices)
+    c = info.coord(info.ep_axes)
+    return range(c * l_e, (c + 1) * l_e)
+
+
+def _router(cfg, stack: int = 0) -> torch.Tensor:
+    return _dense_init(torch.Generator(device=DEV).manual_seed(EP_SEED + 1),
+                       (cfg.d_model, cfg.num_experts), torch.float32,
+                       stack=stack)
+
+
+def _ep_layer(cfg, experts: range) -> dict:
+    """arctic's MoE layer: the router and the tables of ``experts``, each
+    expert from its own seeded generator (``moe.init_experts``)."""
+    return {"router": _router(cfg)} | moe.init_experts(cfg, experts,
+                                                       EP_SEED, DEV)
+
+
+def _ep_inputs(cfg) -> dict:
+    gen = torch.Generator().manual_seed(EP_SEED + 2)
+    rows, n = EP_PREFILL
+    return {"prefill": torch.randn((rows, n, cfg.d_model), generator=gen)
+            .to(cfg.dtype).to(DEV),
+            "decode": torch.randn((EP_DECODE, 1, cfg.d_model), generator=gen)
+            .to(cfg.dtype).to(DEV)}
+
+
+class _Drops:
+    """Inside this block every ``models.moe._dispatch_indices`` call keeps
+    its dropped mask."""
+
+    def __enter__(self):
+        self.saved, self.masks = moe._dispatch_indices, []
+
+        def recorded(*args):
+            slot, dropped = self.saved(*args)
+            self.masks.append(dropped)
+            return slot, dropped
+
+        moe._dispatch_indices = recorded
+        return self
+
+    def __exit__(self, *exc):
+        moe._dispatch_indices = self.saved
+
+
+def _dist_ms(fn, reps: int = EP_REPS) -> float:
+    """Median wall ms of ``fn`` across the group: every rank starts after a
+    barrier and the time ends at the barrier after the slowest rank."""
+    times = []
+    for _ in range(reps):
+        tdist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        tdist.barrier()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _layer_runs(p, xs, cfg, infos) -> dict:
+    """Each (mode, input): the output, the dropped masks and routes of its
+    call (host copies) and its ms."""
+    out = {}
+    for mode, info in infos.items():
+        for key, x in xs.items():
+            with _Drops() as drops, _Routes() as routes:
+                y = moe.apply_moe_ep(p, x, cfg, info)
+            torch.cuda.synchronize()
+            out[mode, key] = {
+                "y": y.cpu(), "dropped": [m.cpu() for m in drops.masks],
+                "ids": [i.cpu() for i in routes.ids],
+                "ms": _dist_ms(lambda: moe.apply_moe_ep(p, x, cfg, info))}
+    return out
+
+
+def _moe_ep_rank(rank: int, root: str) -> None:
+    mesh, rules = _rank_setup()
+    cfg = get_config(ARCTIC)
+    infos = {mode: _ep_info(mesh, rules, **kw)
+             for mode, kw in EP_LAYER_MODES.items()}
+    info = infos["alltoall"]
+    p = _ep_layer(cfg, _own_experts(info, cfg))
+    runs = _layer_runs(p, _ep_inputs(cfg), cfg, infos)
+    torch.save({"runs": runs, "model": info.coord((info.seq_split_axis,)),
+                "expert_bytes": sum(p[k].numel() * p[k].element_size()
+                                    for k in EXPERT_LEAVES),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9},
+               Path(root) / f"rank{rank}.pt")
+
+
+def _chunk_rows(runs_by_rank: list, field: str, models: list):
+    """A per-chunk record (the ranks' routes or dropped masks, one tensor
+    per call) joined in seq-split order: one tensor per call."""
+    order = sorted(range(len(models)), key=lambda r: models[r])
+    calls = len(runs_by_rank[0][field])
+    return [torch.cat([runs_by_rank[r][field][c] for r in order])
+            for c in range(calls)]
+
+
+def _held_rows(y, want, ids, want_ids, dropped, k: int):
+    """Rows whose token kept every assignment and its reference route;
+    the relative L2 error over them, and the counts."""
+    t = want.shape[0]
+    lost = dropped.view(-1, k)[:t].any(-1)
+    flipped = (ids[:t].sort(-1)[0] != want_ids.sort(-1)[0]).any(-1)
+    keep = ~(lost | flipped)
+    rel = ((y[keep].float() - want[keep].float()).norm()
+           / want[keep].float().norm()).item()
+    return rel, int(dropped[:t * k].sum()), int(lost.sum()), \
+        int(flipped.sum()), int(keep.sum())
+
+
+def _nccl_world_one(p, xs, cfg, root: Path) -> dict:
+    """The layer through an NCCL group of world size 1 on this process
+    (all 128 experts local): each mode's output, drops, routes and ms."""
+    dist_launch.init("nccl", 0, 1, f"file://{root}/nccl_store")
+    try:
+        mesh = mesh_launch.make_host_mesh()
+        rules = sharding.make_rules(mesh)
+        infos = {m: _ep_info(mesh, rules, **EP_LAYER_MODES[m])
+                 for m in ("allgather", "alltoall")}
+        return _layer_runs(p, xs, cfg, infos)
+    finally:
+        tdist.destroy_process_group()
+
+
+def phase_moe_ep() -> None:
+    """arctic-480b's MoE layer at full width (d_model 7168, 128 experts of
+    d_ff 4864, top-2, bf16: 13.39 B expert parameters, 26.8 GB) split over
+    the (1, 4) worker mesh, 32 experts (6.7 GB) a rank, on 8 x 256 prefill
+    tokens and an 8-token decode. First the single-process
+    ``apply_moe_reference`` on all 128 experts (outputs kept on the host),
+    then the same weights through an NCCL group of world size 1, the
+    weights freed; then 4 gloo ranks, each drawing only its own experts.
+    allgather is held to the reference (``MODEL_TOL``), alltoall on the
+    tokens that kept every assignment and their route (drops reported),
+    fused_a2a bit-equal to the per-axis composition; ms per layer per
+    mode (gloo over the host), each rank's peak memory."""
+    cfg = get_config(ARCTIC)
+    root = _dist_dir("moe_ep")
+    xs = _ep_inputs(cfg)
+    p = _ep_layer(cfg, range(cfg.num_experts))
+    want, want_ids, ref_ms = {}, {}, {}
+    for key, x in xs.items():
+        with _Routes() as routes:
+            want[key] = moe.apply_moe_reference(p, x, cfg)
+        want_ids[key] = routes.ids[0]
+        ref_ms[key] = time_ms(lambda: moe.apply_moe_reference(p, x, cfg),
+                              reps=3)
+    nccl = _nccl_world_one(p, xs, cfg, root)
+    want = {k: v.cpu() for k, v in want.items()}
+    want_ids = {k: v.cpu() for k, v in want_ids.items()}
+    expert_gb = sum(p[k].numel() * p[k].element_size()
+                    for k in EXPERT_LEAVES) / 1e9
+    del p
+    _release()
+    say("moe_ep", expert_params_gb=f"{expert_gb:.2f}",
+        reference_ms=json.dumps({k: round(v, 3) for k, v in ref_ms.items()}))
+    tol, k = MODEL_TOL[torch.bfloat16], cfg.top_k
+    for (mode, key), r in nccl.items():
+        y, want_y = (t.reshape(-1, cfg.d_model) for t in (r["y"], want[key]))
+        if mode == "allgather":
+            held = (_rel_l2(y, want_y), 0, 0, 0, want_y.shape[0])
+        else:
+            held = _held_rows(y, want_y, r["ids"][0], want_ids[key],
+                              r["dropped"][0], k)
+        say("moe_ep", group="nccl world size 1", mode=mode, input=key,
+            ms_per_layer=f"{r['ms']:.3f}", rel_l2=f"{held[0]:.3e}",
+            dropped_assignments=held[1], tokens_held=held[4])
+        check(held[0] <= tol, f"moe_ep: nccl {mode} {key} differs from the "
+              f"reference by {held[0]:.3e} (relative L2)")
+
+    ranks = _spawn(_moe_ep_rank, root)
+    models = [r["model"] for r in ranks]
+    for key in xs:
+        want_y = want[key].reshape(-1, cfg.d_model)
+        for mode in EP_LAYER_MODES:
+            runs = [r["runs"][mode, key] for r in ranks]
+            ys = [run["y"] for run in runs]
+            check(all(torch.equal(y, ys[0]) for y in ys),
+                  f"moe_ep: {mode} {key}: the ranks' outputs differ")
+            y = ys[0].reshape(-1, cfg.d_model)
+            if mode == "allgather":
+                rel = _rel_l2(y, want_y)
+                held = (rel, 0, 0, int((runs[0]["ids"][0].sort(-1)[0]
+                                        != want_ids[key].sort(-1)[0])
+                                       .any(-1).sum()), want_y.shape[0])
+            else:
+                held = _held_rows(y, want_y,
+                                  _chunk_rows(runs, "ids", models)[0],
+                                  want_ids[key],
+                                  _chunk_rows(runs, "dropped", models)[0], k)
+            say("moe_ep", group=repr(GLOO), mode=mode, input=key,
+                ms_per_layer=f"{runs[0]['ms']:.3f}",
+                rel_l2_held=f"{held[0]:.3e}", tol=tol,
+                dropped_assignments=held[1], tokens_dropped=held[2],
+                routes_differing=held[3],
+                tokens_held=f"{held[4]}/{want_y.shape[0]}")
+            check(held[4] > 0 and held[0] <= tol,
+                  f"moe_ep: {mode} {key}: {held[0]:.3e} from the reference "
+                  f"over {held[4]} tokens (relative L2)")
+        fused = [r["runs"]["fused", key]["y"] for r in ranks]
+        per_axis = [r["runs"]["alltoall", key]["y"] for r in ranks]
+        check(all(torch.equal(a, b) for a, b in zip(fused, per_axis)),
+              f"moe_ep: {key}: fused_a2a differs from the per-axis "
+              "all-to-alls")
+    say("moe_ep", fused_a2a_bit_equal=True,
+        rank_expert_gb=json.dumps([round(r["expert_bytes"] / 1e9, 2)
+                                   for r in ranks]),
+        rank_peak_gb=json.dumps([round(r["peak_gb"], 2) for r in ranks]))
+
+
+# arctic at full width through the model with ep: 2 of its 35 layers (13.4
+# GB of experts a rank, 15.2 GB with the replicated weights); prefill in
+# allgather mode (no drops), decode in alltoall mode (1 token a rank: a
+# bucket of 4 slots cannot overflow)
+MOE_EP_ROWS, MOE_EP_PROMPT, MOE_EP_STEPS, MOE_EP_LEN = 4, 256, 4, 512
+
+
+def _ep_model(cfg, experts: range) -> dict:
+    """arctic's weights with only ``experts`` in the expert tables: the
+    replicated ones from ``api.init`` of a one-expert config (the same on
+    every rank), the router and experts as in ``_ep_layer``."""
+    base = dataclasses.replace(cfg, num_experts=1)
+    params = model_api.build(base).init(
+        torch.Generator(device=DEV).manual_seed(EP_SEED))
+    tables = params["blocks"]["moe"]
+    for k in EXPERT_LEAVES:
+        del tables[k]
+    tables["router"] = _router(cfg, stack=cfg.num_layers)
+    tables.update(moe.init_experts(cfg, experts, EP_SEED, DEV,
+                                   stack=cfg.num_layers))
+    return params
+
+
+def _ep_prompt(cfg):
+    prompt = torch.as_tensor(np.random.default_rng(EP_SEED).integers(
+        0, cfg.vocab_size, (MOE_EP_ROWS, MOE_EP_PROMPT)), dtype=torch.int32,
+        device=DEV)
+    lengths = torch.full((MOE_EP_ROWS,), MOE_EP_PROMPT, dtype=torch.int32,
+                         device=DEV)
+    return prompt, lengths
+
+
+def _ep_generate(api, params, cfg, eps=(None, None), tokens_in=None):
+    """api.prefill of the prompt, then ``MOE_EP_STEPS`` decode steps
+    (teacher-forced by ``tokens_in``): the logits and tokens, and the
+    prefill's and the decode steps' wall ms."""
+    prompt, lengths = _ep_prompt(cfg)
+    cache = api.init_cache(MOE_EP_ROWS, MOE_EP_LEN, DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(params, cache, prompt, lengths, ep=eps[0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs, toks = [logits], []
+    for step in range(MOE_EP_STEPS):
+        tok = logits.argmax(-1).to(torch.int32) if tokens_in is None \
+            else tokens_in[step].to(DEV)
+        toks.append(tok)
+        logits, cache = api.decode(params, cache, tok, lengths, ep=eps[1])
+        outs.append(logits)
+        lengths = lengths + 1
+    torch.cuda.synchronize()
+    ms = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3 / MOE_EP_STEPS)
+    return outs, toks, ms
+
+
+def _model_moe_ep_rank(rank: int, root: str) -> None:
+    mesh, rules = _rank_setup()
+    cfg = dataclasses.replace(get_config(ARCTIC), **MOE_CUTS[ARCTIC])
+    eps = (_ep_info(mesh, rules, ep_mode="allgather"),
+           _ep_info(mesh, rules))
+    api = model_api.build(cfg)
+    params = _ep_model(cfg, _own_experts(eps[1], cfg))
+    toks = torch.load(Path(root) / "tokens.pt")
+    _zero_counts()
+    with _Routes() as routes:
+        outs, _, ms = _ep_generate(api, params, cfg, eps, toks)
+    torch.cuda.synchronize()
+    counts = _counts()
+    torch.save({"logits": [o.cpu() for o in outs],
+                "ids": [i.cpu() for i in routes.ids], "counts": counts,
+                "model": eps[1].coord((eps[1].seq_split_axis,)),
+                "ms": ms, "bytes": _bytes(params),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9},
+               Path(root) / f"rank{rank}.pt")
+
+
+def phase_model_moe_ep() -> None:
+    """arctic-480b at full width, 2 of 35 layers, through api.prefill (4
+    rows of 256 tokens) and 4 api.decode steps with ``ep`` over 4 gloo
+    ranks on the (1, 4) worker mesh, each rank holding its 32 experts a
+    layer and running attention through the kernels (both launch in every
+    rank, tensor-core variants only). First a single-process run of the
+    same weights (all 128 experts, 54.9 GB), routes kept, then freed; the
+    ranks are teacher-forced with its tokens and their logits held on the
+    outputs whose token kept its routes (``MODEL_TOL``), as model_moe
+    holds them."""
+    cfg = dataclasses.replace(get_config(ARCTIC), **MOE_CUTS[ARCTIC])
+    root = _dist_dir("model_moe_ep")
+    api = model_api.build(cfg)
+    params = _ep_model(cfg, range(cfg.num_experts))
+    full_gb = _bytes(params) / 1e9
+    with _Routes() as routes:
+        want, toks, ref_ms = _ep_generate(api, params, cfg)
+    want_ids = [i.cpu() for i in routes.ids]
+    want = [w.cpu() for w in want]
+    torch.save([t.cpu() for t in toks], root / "tokens.pt")
+    del params
+    _release()
+    ranks = _spawn(_model_moe_ep_rank, root)
+    models = [r["model"] for r in ranks]
+    layers = cfg.num_layers
+    # the ranks' routes: the prefill's (allgather: every token on every
+    # rank) from rank 0, each decode step's joined from the ranks' chunks
+    got_ids = ranks[0]["ids"][:layers] + _chunk_rows(
+        [{"ids": r["ids"][layers:]} for r in ranks], "ids", models)
+    widths = [MOE_EP_PROMPT] + [1] * MOE_EP_STEPS
+    flips, keep = _route_flips([i.to(DEV) for i in got_ids],
+                               [i.to(DEV) for i in want_ids], MOE_EP_ROWS,
+                               widths, layers)
+    rel, held = _held_logit_error([g.to(DEV) for g in ranks[0]["logits"]],
+                                  [w.to(DEV) for w in want], keep)
+    spread = max((a - b).abs().max().item() for r in ranks[1:]
+                 for a, b in zip(r["logits"], ranks[0]["logits"]))
+    for r, out in enumerate(ranks):
+        c = out["counts"]
+        say("model_moe_ep", rank=r, chunked_prefill=c["chunked_prefill"],
+            paged_attention=c["paged_attention"],
+            weights_gb=f"{out['bytes'] / 1e9:.2f}",
+            peak_gb=f"{out['peak_gb']:.2f}",
+            prefill_ms=f"{out['ms'][0]:.1f}",
+            decode_ms_per_step=f"{out['ms'][1]:.1f}")
+        for name in ("chunked_prefill", "paged_attention"):
+            got = c[name]
+            check(got["tensor_core"] > 0
+                  and sum(got.values()) == got["tensor_core"],
+                  f"model_moe_ep: rank {r}: {name} launched {got}, want "
+                  "its tensor_core variant only")
+    finite = all(torch.isfinite(g).all().item() for g in ranks[0]["logits"])
+    say("model_moe_ep", arch=ARCTIC, layers=layers, cut="2 of 35 layers",
+        single_process_gb=f"{full_gb:.1f}", transport=repr(GLOO),
+        single_process_prefill_ms=f"{ref_ms[0]:.1f}",
+        single_process_decode_ms_per_step=f"{ref_ms[1]:.1f}",
+        routes=MOE_EP_ROWS * sum(widths) * layers, routes_differing=flips,
+        outputs_held=f"{held}/{MOE_EP_ROWS * len(widths)}",
+        logits_rel_l2_held=f"{rel:.3e}", tol=MODEL_TOL[torch.bfloat16],
+        ranks_max_abs_spread=f"{spread:.3e}")
+    check(finite, "model_moe_ep: non-finite logits")
+    check(held > 0, "model_moe_ep: every output's route flipped")
+    check(rel <= MODEL_TOL[torch.bfloat16], f"model_moe_ep: logits of rows "
+          f"whose routes agree differ by {rel:.3e} (relative L2)")
+
+
+def _shard_restore_rank(rank: int, root: str) -> None:
+    mesh, rules = _rank_setup()
+    cfg = get_config(ARCH)
+    target = model_api.build(cfg).init(MetaGenerator())
+    specs = sharding.param_specs(cfg, target, rules)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = checkpoint.restore(Path(root) / "ckpt", 0, target, DEV,
+                             shardings=specs, mesh=mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    full = checkpoint.restore(Path(root) / "ckpt", 0, target, "cpu")
+    coords = {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+    flat_got, flat_full, flat_spec = (dict(_leaf_items(t))
+                                      for t in (got, full, specs))
+    differ, local, sharded = [], 0, 0
+    for key, dt in flat_got.items():
+        want = flat_full[key][sharding.local_slices(
+            tuple(dt.shape), flat_spec[key], mesh, coords)].contiguous()
+        mine = dt.to_local().cpu().contiguous()
+        if not torch.equal(mine.view(torch.uint8), want.view(torch.uint8)):
+            differ.append("/".join(key))
+        local += mine.numel() * mine.element_size()
+        sharded += mine.numel() < flat_full[key].numel()
+    table = ("embed", "table")
+    placed = distribute_tensor(flat_full[table].to(DEV), mesh,
+                               sharding.to_placements(flat_spec[table], mesh),
+                               src_data_rank=None)
+    torch.save({"differ": differ, "local_bytes": local, "sharded": sharded,
+                "leaves": len(flat_got), "seconds": seconds,
+                "distribute_same": torch.equal(
+                    placed.to_local(), flat_got[table].to_local())},
+               Path(root) / f"rank{rank}.pt")
+
+
+def phase_shard_restore() -> None:
+    """Full-width qwen2-1.5b (bf16, random weights from a seed) saved by
+    ``train.checkpoint.save``, then restored on 4 gloo ranks under
+    ``param_specs`` for the (1, 4) worker mesh, each rank reading only its
+    slices (``restore(shardings=, mesh=)``): every rank's local shard of
+    every leaf equals that slice of the saved tensor byte for byte, and
+    ``distribute_tensor(src_data_rank=None)`` of the whole embedding on
+    the card slices it the same way; the local bytes a rank holds against
+    the replicated size."""
+    cfg = get_config(ARCH)
+    root = _dist_dir("shard_restore")
+    params = model_api.build(cfg).init(
+        torch.Generator(device=DEV).manual_seed(EP_SEED))
+    full = _bytes(params)
+    t0 = time.perf_counter()
+    checkpoint.save(root / "ckpt", 0, params)
+    save_s = time.perf_counter() - t0
+    del params
+    _release()
+    ranks = _spawn(_shard_restore_rank, root)
+    for r, out in enumerate(ranks):
+        say("shard_restore", rank=r, local_gb=f"{out['local_bytes'] / 1e9:.3f}",
+            replicated_gb=f"{full / 1e9:.3f}",
+            share=f"{out['local_bytes'] / full:.3f}",
+            leaves_sharded=f"{out['sharded']}/{out['leaves']}",
+            restore_s=f"{out['seconds']:.2f}", save_s=f"{save_s:.2f}",
+            distribute_same=out["distribute_same"])
+        check(not out["differ"], f"shard_restore: rank {r}: {out['differ']} "
+              "differ from their slices of the saved tensors")
+        check(out["distribute_same"], f"shard_restore: rank {r}: "
+              "distribute_tensor slices the embedding otherwise")
+        check(out["local_bytes"] < full, f"shard_restore: rank {r} holds "
+              "the whole model")
+
+
 def run_phase(name: str, fn, *args):
     """``fn(*args)``, a line with the phase's seconds, then what the phase
     left freed (``_release``)."""
@@ -3300,6 +3808,9 @@ def main() -> None:
         launches[phase] = run_phase(phase, phase_serve, card, phase, *args)
     run_phase("train", phase_train, card)
     run_phase("train_families", phase_train_families)
+    run_phase("moe_ep", phase_moe_ep)
+    run_phase("model_moe_ep", phase_model_moe_ep)
+    run_phase("shard_restore", phase_shard_restore)
     # a record's launches: its device kernel's on its main path (the e4m3
     # records' on the same path with the fp8 cache)
     main = {"chunked_prefill": ("serve", "chunked_prefill.tensor_core"),

@@ -14,27 +14,30 @@ backbone behind a stub frontend's patch features), rwkv6, the hybrid
                                                 encdec also takes
                                                 ``enc_len`` (default
                                                 max(8, S // 4), as JAX)
-  prefill(params, cache, inputs, lengths)    -> (last_logits, cache); inputs
+  prefill(params, cache, inputs, lengths, ep=None)
+                                             -> (last_logits, cache); inputs
                                                 are tokens (B, S), for a
                                                 vlm {"tokens", "prefix_embeds"}
                                                 with lengths counting the
                                                 prefix too (P + S), for an
                                                 encdec {"frames", "tokens"}
-  prefill_chunk(params, cache, chunk, starts, take=None) -> (logits, cache)
+  prefill_chunk(params, cache, chunk, starts, ep=None, take=None)
+                                             -> (logits, cache)
                                                 (None for rwkv, hybrid and
                                                 encdec, as in JAX)
-  decode(params, cache, tokens, lengths)     -> (logits, cache)
+  decode(params, cache, tokens, lengths, ep=None) -> (logits, cache)
   prepare(params)                            -> params for repeated steps
                                                 (dense: per-layer views
                                                 built once; serving only)
   loss(params, batch, ep=None)               -> scalar mean cross-entropy
                                                 under autograd (each
                                                 family's ``lm_loss``; batch
-                                                as ``train.data`` draws it;
-                                                ``ep`` raises: no expert
-                                                parallelism yet)
+                                                as ``train.data`` draws it)
 
-The cache or state is updated in place (see ``models.transformer``,
+``ep`` (a ``models.moe.EPInfo``) runs the MoE blocks expert-parallel, the
+caller's rank holding its batch rows and its experts
+(``models.transformer``); the other families take it and ignore it, as in
+JAX. The cache or state is updated in place (see ``models.transformer``,
 ``models.rwkv6``, ``models.zamba2``, ``models.whisper``).
 """
 from __future__ import annotations
@@ -59,14 +62,9 @@ class ModelAPI:
 
 
 def _loss(lm_loss, cfg: ModelConfig) -> Callable:
-    def loss(params, batch, ep=None):
-        if ep is not None:
-            raise NotImplementedError(
-                "loss(ep=...): expert parallelism across devices is not "
-                "ported yet (ROADMAP.md, queue 1 item 5); the port trains "
-                "on one device (ep=None)")
-        return lm_loss(params, batch, cfg)
-    return loss
+    """A family's ``lm_loss`` behind ``loss(params, batch, ep=None)``, the
+    ``ep`` ignored (no experts)."""
+    return lambda params, batch, ep=None: lm_loss(params, batch, cfg)
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
@@ -76,8 +74,9 @@ def build(cfg: ModelConfig) -> ModelAPI:
             loss=_loss(rwkv6.lm_loss, cfg),
             init=lambda gen: rwkv6.init_lm(gen, cfg),
             init_cache=lambda b, s, device: rwkv6.init_state(cfg, b, device),
-            prefill=lambda p, c, t, l: rwkv6.prefill(p, c, t, l, cfg),
-            decode=lambda p, c, t, l: rwkv6.decode(p, c, t, l, cfg),
+            prefill=lambda p, c, t, l, ep=None: rwkv6.prefill(p, c, t, l,
+                                                              cfg),
+            decode=lambda p, c, t, l, ep=None: rwkv6.decode(p, c, t, l, cfg),
         )
     if cfg.family == "hybrid":
         return ModelAPI(
@@ -86,8 +85,10 @@ def build(cfg: ModelConfig) -> ModelAPI:
             init=lambda gen: zamba2.init_lm(gen, cfg),
             init_cache=lambda b, s, device: zamba2.init_state(cfg, b, s,
                                                               device),
-            prefill=lambda p, c, t, l: zamba2.prefill(p, c, t, l, cfg),
-            decode=lambda p, c, t, l: zamba2.decode(p, c, t, l, cfg),
+            prefill=lambda p, c, t, l, ep=None: zamba2.prefill(p, c, t, l,
+                                                               cfg),
+            decode=lambda p, c, t, l, ep=None: zamba2.decode(p, c, t, l,
+                                                             cfg),
         )
     if cfg.family == "encdec":
         return ModelAPI(
@@ -96,29 +97,33 @@ def build(cfg: ModelConfig) -> ModelAPI:
             init=lambda gen: whisper.init_lm(gen, cfg),
             init_cache=lambda b, s, device, enc_len=0: whisper.init_cache(
                 cfg, b, s, enc_len or max(8, s // 4), device),
-            prefill=lambda p, c, inputs, l: whisper.prefill(
+            prefill=lambda p, c, inputs, l, ep=None: whisper.prefill(
                 p, c, inputs["frames"], inputs["tokens"], l, cfg),
-            decode=lambda p, c, t, l: whisper.decode(p, c, t, l, cfg),
+            decode=lambda p, c, t, l, ep=None: whisper.decode(p, c, t, l,
+                                                              cfg),
         )
     if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
-    def prefill(params, cache, inputs, lengths):
+    def prefill(params, cache, inputs, lengths, ep=None):
         if isinstance(inputs, dict):
             return transformer.prefill(
-                params, cache, inputs["tokens"], lengths, cfg,
+                params, cache, inputs["tokens"], lengths, cfg, ep=ep,
                 prefix_embeds=inputs.get("prefix_embeds"))
-        return transformer.prefill(params, cache, inputs, lengths, cfg)
+        return transformer.prefill(params, cache, inputs, lengths, cfg,
+                                   ep=ep)
 
     return ModelAPI(
         cfg=cfg,
-        loss=_loss(transformer.lm_loss, cfg),
+        loss=lambda params, batch, ep=None: transformer.lm_loss(
+            params, batch, cfg, ep=ep),
         init=lambda gen: transformer.init_lm(gen, cfg),
         init_cache=lambda b, s, device: transformer.init_cache(cfg, b, s,
                                                                device),
         prefill=prefill,
-        decode=lambda p, c, t, l: transformer.decode(p, c, t, l, cfg),
-        prefill_chunk=lambda p, c, ch, st, take=None:
-            transformer.prefill_chunk(p, c, ch, st, cfg, take=take),
+        decode=lambda p, c, t, l, ep=None: transformer.decode(p, c, t, l,
+                                                              cfg, ep=ep),
+        prefill_chunk=lambda p, c, ch, st, ep=None, take=None:
+            transformer.prefill_chunk(p, c, ch, st, cfg, ep=ep, take=take),
         prepare=transformer.with_layer_views,
     )

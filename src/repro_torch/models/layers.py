@@ -115,11 +115,22 @@ class ModelConfig:
 DRAW_ELEMENTS = 1 << 26
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` in an init (``api.init``): every
+    tensor is made on the meta device, shapes and dtypes with no storage
+    and no draws (JAX's ``jax.eval_shape`` of an init), so the sharding
+    rules see a full-width model of any size."""
+    device = torch.device("meta")
+
+
 def _normal(gen: torch.Generator, shape, dtype, scale: float):
     """N(0, scale^2) drawn in f32 and stored in ``dtype``, in pieces of at
     most ``DRAW_ELEMENTS`` consecutive elements (row-major, so along the
-    leading axes); a tensor of one piece is drawn as one call."""
+    leading axes); a tensor of one piece is drawn as one call. On the meta
+    device (``MetaGenerator``) nothing is drawn."""
     out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    if out.is_meta:
+        return out
     flat = out.view(-1)
     for lo in range(0, flat.numel(), DRAW_ELEMENTS):
         n = min(DRAW_ELEMENTS, flat.numel() - lo)

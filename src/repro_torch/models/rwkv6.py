@@ -59,6 +59,9 @@ def _dinit(gen, shape, dtype, scale=None, *, stack: int):
     """N(0, scale^2) drawn in f32 (scale defaults to 1/sqrt(shape[0])),
     stored in ``dtype``, ``stack`` layers along a new leading axis."""
     s = scale if scale is not None else 1.0 / math.sqrt(max(1, shape[0]))
+    if gen.device.type == "meta":                  # layers.MetaGenerator
+        return torch.empty((stack,) + tuple(shape), dtype=dtype,
+                           device="meta")
     w = torch.randn((stack,) + tuple(shape), generator=gen,
                     dtype=torch.float32, device=gen.device)
     return (w * s).to(dtype)

@@ -16,12 +16,20 @@ Entry points:
                                                      or per-layer tuples of
                                                      (B,S_l,Hkv,D) under
                                                      ``uses_ring``
-  prefill(params, cache, tokens, lengths, cfg, prefix_embeds=None)
+  prefill(params, cache, tokens, lengths, cfg, ep, prefix_embeds=None)
                                                   -> (last_logits, cache)
-  prefill_chunk(params, cache, chunk, starts, cfg, take) -> (logits, cache)
-  decode(params, cache, tokens, lengths, cfg)     -> (logits, cache)
-  forward_train(params, tokens, cfg, prefix_embeds=None) -> logits (B, S, V)
-  lm_loss(params, batch, cfg)                     -> scalar
+  prefill_chunk(params, cache, chunk, starts, cfg, ep, take)
+                                                  -> (logits, cache)
+  decode(params, cache, tokens, lengths, cfg, ep) -> (logits, cache)
+  forward_train(params, tokens, cfg, ep, prefix_embeds=None)
+                                                  -> logits (B, S, V)
+  lm_loss(params, batch, cfg, ep)                 -> scalar
+
+``ep`` (a ``models.moe.EPInfo``, default None) runs each MoE block
+expert-parallel, as in JAX: the caller's rank holds its own batch rows
+(tokens, lengths, cache) and its own experts, every other weight
+replicated; the non-MoE layers run on those rows alone (attention through
+the kernels) and only the MoE block communicates.
 
 Unlike the JAX functions, the serving entry points write the new K/V into
 ``cache`` IN PLACE and return the same dict. Each entry point builds what
@@ -158,7 +166,8 @@ def with_layer_views(params):
 
 
 def _block_fn(bp, x, cfg: ModelConfig, *, positions, mask: MaskSpec, window,
-              kv, cache_positions, lengths=None, tables=None, ring=False):
+              kv, cache_positions, lengths=None, tables=None, ring=False,
+              ep: Optional[M.EPInfo] = None):
     """One block. ``ring``: this layer's cache is a window-sized ring
     (decode only), written at ``cache_positions mod`` its size and read
     under the "ring" mask, which the window reduces to there."""
@@ -178,7 +187,7 @@ def _block_fn(bp, x, cfg: ModelConfig, *, positions, mask: MaskSpec, window,
     x = x + attn_out
     h = L.apply_norm(bp["norm_mlp"], x, cfg)
     if cfg.is_moe:
-        mlp_out = M.apply_moe(bp["moe"], h, cfg)
+        mlp_out = M.apply_moe(bp["moe"], h, cfg, ep)
         if cfg.moe_dense_residual_ff:
             mlp_out = mlp_out + L.apply_mlp(bp["mlp"], h, cfg)
     else:
@@ -189,7 +198,7 @@ def _block_fn(bp, x, cfg: ModelConfig, *, positions, mask: MaskSpec, window,
 
 
 def _run_blocks(params, x, cfg: ModelConfig, *, positions, mask, cache,
-                cache_positions, lengths=None):
+                cache_positions, lengths=None, ep=None):
     """Every layer over ``x``, with the tables they share built once: the
     rope tables, and for a decode one block table per distinct cache
     length (a ring's and the full one)."""
@@ -207,7 +216,7 @@ def _run_blocks(params, x, cfg: ModelConfig, *, positions, mask, cache,
             layers[i], x, cfg, positions=positions, mask=mask, window=window,
             kv=(cache["k"][i], cache["v"][i]),
             cache_positions=cache_positions, lengths=lengths,
-            tables=tables[sizes[i]], ring=rings[i])
+            tables=tables[sizes[i]], ring=rings[i], ep=ep)
     return x, cache
 
 
@@ -237,7 +246,7 @@ def _embed_inputs(params, tokens, cfg: ModelConfig, prefix_embeds=None):
     return torch.cat([vis, x], dim=1)
 
 
-def prefill(params, cache, tokens, lengths, cfg: ModelConfig,
+def prefill(params, cache, tokens, lengths, cfg: ModelConfig, ep=None,
             prefix_embeds: Optional[torch.Tensor] = None):
     """Full-prompt prefill. tokens (B, S) padded; KV written at [0, S), or
     with a VLM's ``prefix_embeds`` (B, P, F) at [0, P + S), the prefix
@@ -253,12 +262,12 @@ def prefill(params, cache, tokens, lengths, cfg: ModelConfig,
     zero = torch.zeros((b,), dtype=torch.int32, device=x.device)
     x, cache = _run_blocks(params, x, cfg, positions=positions,
                            mask=MaskSpec("causal"), cache=cache,
-                           cache_positions=zero)
+                           cache_positions=zero, ep=ep)
     idx = (lengths.long() - 1).clamp(0, s - 1)
     return _last_logits(params, x, idx, cfg), cache
 
 
-def prefill_chunk(params, cache, chunk, starts, cfg: ModelConfig,
+def prefill_chunk(params, cache, chunk, starts, cfg: ModelConfig, ep=None,
                   take: Optional[torch.Tensor] = None):
     """Chunked prefill: chunk (B, Sc) continues requests whose first
     ``starts[b]`` tokens are already in the cache. ``take`` (B,) selects the
@@ -270,7 +279,7 @@ def prefill_chunk(params, cache, chunk, starts, cfg: ModelConfig,
     positions = starts.long()[:, None] + torch.arange(sc, device=x.device)[None]
     x, cache = _run_blocks(params, x, cfg, positions=positions,
                            mask=MaskSpec("chunk"), cache=cache,
-                           cache_positions=starts, lengths=starts)
+                           cache_positions=starts, lengths=starts, ep=ep)
     if take is None:
         idx = torch.full((b,), sc - 1, dtype=torch.long, device=x.device)
     else:
@@ -278,7 +287,7 @@ def prefill_chunk(params, cache, chunk, starts, cfg: ModelConfig,
     return _last_logits(params, x, idx, cfg), cache
 
 
-def decode(params, cache, tokens, lengths, cfg: ModelConfig):
+def decode(params, cache, tokens, lengths, cfg: ModelConfig, ep=None):
     """One decode step. tokens (B,) — the freshly sampled token, written at
     position lengths[b] (a ring layer's at lengths[b] mod its size).
     Returns (logits (B, V), cache)."""
@@ -286,18 +295,19 @@ def decode(params, cache, tokens, lengths, cfg: ModelConfig):
     positions = lengths.long()[:, None]
     x, cache = _run_blocks(params, x, cfg, positions=positions,
                            mask=MaskSpec("lengths"), cache=cache,
-                           cache_positions=lengths, lengths=lengths)
+                           cache_positions=lengths, lengths=lengths, ep=ep)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.unembed(params["embed"], x, cfg)[:, 0], cache
 
 
-def _train_block(bp, x, cfg: ModelConfig, *, positions, window, tables):
+def _train_block(bp, x, cfg: ModelConfig, *, positions, window, tables,
+                 ep=None):
     return _block_fn(bp, x, cfg, positions=positions,
                      mask=MaskSpec("causal"), window=window, kv=None,
-                     cache_positions=None, tables=tables)[0]
+                     cache_positions=None, tables=tables, ep=ep)[0]
 
 
-def forward_train(params, tokens, cfg: ModelConfig,
+def forward_train(params, tokens, cfg: ModelConfig, ep=None,
                   prefix_embeds: Optional[torch.Tensor] = None):
     """tokens (B, S) (after a VLM's ``prefix_embeds`` (B, P, F)) -> logits
     (B, P + S, V) f32, as the JAX ``forward_train``: no cache, every layer
@@ -312,17 +322,17 @@ def forward_train(params, tokens, cfg: ModelConfig,
     for bp, window in zip(L.unstack(params["blocks"]), layer_windows_py(cfg)):
         block = L.remat(functools.partial(
             _train_block, cfg=cfg, positions=positions, window=window,
-            tables=tables), cfg.remat_policy)
+            tables=tables, ep=ep), cfg.remat_policy)
         x = block(bp, x)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.unembed(params["embed"], x, cfg)
 
 
-def lm_loss(params, batch, cfg: ModelConfig):
+def lm_loss(params, batch, cfg: ModelConfig, ep=None):
     """batch {tokens (B, S), labels (B, S)[, prefix_embeds]} -> the mean
     cross-entropy; a VLM's on the text positions only (the last
     ``labels.shape[1]``)."""
-    logits = forward_train(params, batch["tokens"], cfg,
+    logits = forward_train(params, batch["tokens"], cfg, ep=ep,
                            prefix_embeds=batch.get("prefix_embeds"))
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:

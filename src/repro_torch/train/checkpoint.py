@@ -10,6 +10,13 @@ restores in the other. bf16 leaves are written as their raw 2-byte words
 under the dtype name "bfloat16", as JAX writes them through ml_dtypes. The
 write is atomic (a temporary directory renamed into place) and keeps the
 last ``keep`` steps.
+
+``restore`` reads into one device, or with ``shardings`` (a tree of
+``models.sharding`` specs) and a ``DeviceMesh`` into any mesh, as JAX's
+restores into any sharding: the files are the same (full arrays), and
+each rank reads only its own slice of each sharded leaf from a memory map
+of ``arrays.bin`` and wraps it as a DTensor. Nothing is sent between
+ranks.
 """
 from __future__ import annotations
 
@@ -19,7 +26,11 @@ import shutil
 from pathlib import Path
 from typing import Any, Optional
 
+import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.models.sharding import local_slices, to_placements
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int32": torch.int32,
@@ -86,13 +97,25 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir, step: int, target_tree: Any, device) -> Any:
+def restore(ckpt_dir, step: int, target_tree: Any, device,
+            shardings: Any = None, mesh=None) -> Any:
     """Read ``step`` into the structure of ``target_tree`` (its keys; each
     leaf takes the checkpoint's dtype and shape), as tensors on
+    ``device``. With ``shardings`` (a tree of specs matching
+    ``target_tree``; a missing or None leaf is read whole), each sharded
+    leaf is a DTensor on ``mesh`` under its spec (``sharding.
+    to_placements``) whose local tensor is this rank's slice on
     ``device``."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     meta = json.loads((d / "manifest.json").read_text())["arrays"]
-    data = bytearray((d / "arrays.bin").read_bytes())
+    # copy-on-write map: writable for torch.frombuffer, and only the pages
+    # a read touches come from the file
+    data = np.memmap(d / "arrays.bin", dtype=np.uint8, mode="c")
+    flat_specs = _flatten_specs(shardings) if shardings is not None else {}
+    if flat_specs and mesh is None:
+        raise ValueError("restore: shardings need the mesh they name")
+    coords = {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names} \
+        if flat_specs else {}
 
     def read(key: str) -> torch.Tensor:
         info = meta[key]
@@ -100,9 +123,17 @@ def restore(ckpt_dir, step: int, target_tree: Any, device) -> Any:
         count = 1
         for n in shape:
             count *= n
-        flat = torch.frombuffer(data, dtype=_DTYPES[info["dtype"]],
+        full = torch.frombuffer(data, dtype=_DTYPES[info["dtype"]],
                                 count=count, offset=info["offset"])
-        return flat.reshape(shape).to(device, copy=True)
+        full = full.reshape(shape)
+        spec = flat_specs.get(key)
+        if spec is None:
+            return full.to(device, copy=True)
+        local = full[local_slices(shape, spec, mesh, coords)]
+        return DTensor.from_local(
+            local.to(device, copy=True), mesh, to_placements(spec, mesh),
+            run_check=False, shape=torch.Size(shape),
+            stride=full.stride())
 
     def build(tree, prefix: str = ""):
         if isinstance(tree, dict):
@@ -112,3 +143,14 @@ def restore(ckpt_dir, step: int, target_tree: Any, device) -> Any:
 
     _flatten(target_tree)           # refuses what is not a tree of tensors
     return build(target_tree)
+
+
+def _flatten_specs(tree, prefix: str = "") -> dict:
+    """{key: spec} of a tree of specs (tuples, or None) with the keys of
+    ``_flatten``."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    flat = {}
+    for k in sorted(tree):
+        flat |= _flatten_specs(tree[k], f"{prefix}/{k}" if prefix else str(k))
+    return flat

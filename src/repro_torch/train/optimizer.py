@@ -13,8 +13,10 @@ functions, ``apply_updates`` updates ``state`` IN PLACE (one f32 copy of
 ``m``, ``v`` and ``master`` is 12 bytes a parameter, 18.5 GB for
 qwen2-1.5b) and returns the same dict.
 
-The ZeRO state partitioning (``state_specs``) waits for the multi-device
-slice (ROADMAP.md, queue 1 item 5).
+``state_specs`` gives the states' partition specs (ZeRO-1), as the JAX
+function does: each inherits its parameter's spec (``models.sharding``)
+and shards its first replicated dim that ``zero_size`` divides over the
+data axis, so each data-parallel rank owns a slice of m, v and master.
 """
 from __future__ import annotations
 
@@ -67,6 +69,51 @@ def init_state(params):
                                             device=p.device), params),
         "master": tree_map(lambda p: p.detach().to(torch.float32,
                                                    copy=True), params),
+    }
+
+
+def state_specs(param_specs, params_shape=None, zero_axis: str = "data",
+                zero_size: int = 16):
+    """Optimizer-state specs (ZeRO-1): inherit the param spec and
+    additionally shard the first replicated *divisible* dim over
+    ``zero_axis``. ``params_shape`` (a matching tree of tensors, meta ones
+    do) enables the divisibility check; without it no widening happens.
+    Specs are ``models.sharding``'s tuples; ``step`` takes the empty one."""
+
+    def _axes_used(spec):
+        used = set()
+        for p in spec:
+            if p is None:
+                continue
+            if isinstance(p, (tuple, list)):
+                used.update(p)
+            else:
+                used.add(p)
+        return used
+
+    def widen(spec, leaf=None):
+        if zero_axis is None or leaf is None or zero_axis in _axes_used(spec):
+            return spec
+        parts = list(spec)
+        for i, p in enumerate(parts):
+            if p is None and leaf.shape[i] % zero_size == 0 \
+                    and leaf.shape[i] > 0:
+                parts[i] = zero_axis
+                return tuple(parts)
+        return spec
+
+    def walk(specs, shapes):
+        if isinstance(specs, dict):
+            return {k: walk(v, shapes[k]) for k, v in specs.items()}
+        return widen(specs, shapes)
+
+    wide = param_specs if params_shape is None \
+        else walk(param_specs, params_shape)
+    return {
+        "step": (),
+        "m": wide,
+        "v": wide,
+        "master": wide,
     }
 
 

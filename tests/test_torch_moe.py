@@ -106,9 +106,11 @@ def test_apply_moe_matches_reference(models, group_elements, monkeypatch):
 
 
 def test_apply_moe_with_ep_raises_naming_the_roadmap(models):
+    """Expert parallelism is ported (``tests/test_torch_moe_ep.py``):
+    ``apply_moe`` takes an ``EPInfo`` and refuses anything else."""
     *_, tcfg, _, _, _, tp = models
     x = torch.zeros((1, 2, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="EPInfo"):
         TM.apply_moe(_first(tp["blocks"]["moe"]), x, tcfg, ep=object())
 
 

@@ -25,6 +25,7 @@ CARRIED = [
     "sched/__init__.py", "sched/backend.py", "sched/core.py",
     "sched/rebalance.py",
     "serving/engine.py", "serving/transfer.py", "serving/simulator.py",
+    "serving/costmodel.py", "serving/trace.py",
     "workload/__init__.py", "workload/profiles.py", "workload/arrivals.py",
     "workload/scenario.py", "workload/csvio.py",
 ]

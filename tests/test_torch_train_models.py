@@ -246,6 +246,12 @@ def test_whisper_refuses_tokens_and_labels_of_different_widths():
 
 
 def test_loss_with_expert_parallelism_raises():
-    tm = tapi.build(get_smoke("arctic-480b"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tm.loss({}, {}, ep=object())
+    """``loss(ep=...)`` runs the MoE blocks expert-parallel
+    (``tests/test_torch_moe_ep.py``); an ``ep`` that is not an ``EPInfo``
+    raises where the first MoE block reads it."""
+    tcfg = get_smoke("arctic-480b")
+    tm = tapi.build(tcfg)
+    tp = tm.init(torch.Generator().manual_seed(0))
+    batch = SyntheticLM(tcfg, DataConfig(batch=2, seq=8), "cpu").batch_at(0)
+    with pytest.raises(TypeError, match="EPInfo"):
+        tm.loss(tp, batch, ep=object())
