@@ -199,6 +199,25 @@ Phases (one line each, a non-zero exit on any failure):
             its slices): every local shard byte-equal to its slice of the
             saved tensor, distribute_tensor(src_data_rank=None) slicing the
             embedding the same way; local bytes against the replicated size
+  dryrun    the port's dry-run (launch.dryrun.run_cell) of one full-width
+            cell a family on the 16 x 16 mesh, as rank 0 of a fake group of
+            256 on the host (meta DTensors, nothing on the card): qwen2-1.5b
+            and arctic-480b decode_32k, rwkv6-7b long_500k, zamba2-2.7b and
+            whisper-medium prefill_32k, paligemma-3b train_4k; each must end
+            ok and prints its bytes a device, dot FLOPs, wire bytes,
+            dominant term (H100 peaks) and trace seconds
+  dryrun_check  the trace's prediction against a real sharded run:
+            qwen2-1.5b (a prefill of 4 x 1024, 8 decode steps) and
+            arctic-480b cut to 2 of 35 layers (4 x 256, 4 steps; TP and EP
+            together) traced on a fake group of 4 with the (1, 4) worker
+            mesh's shape, run single-process (freed), then on 4 gloo ranks
+            with CUDA DTensors under the specs: each rank's placed bytes
+            within 2% of the trace's arguments (qwen2's parameters at
+            shard_restore's 0.805 GB), its dot FLOPs and collectives (count
+            and bytes by kind) equal to the trace's, no collective on a
+            parameter, the tensor-core attention kernels only, logits held
+            to the single-process run (arctic's where routes agree); each
+            rank's peak memory and decode ms (gloo through the host)
 Each phase prints its seconds. Each serve phase zeroes the kernels' launch counts just before it and reads
 them just after, per device kernel variant too (a CUDA graph replay adds
 what its capture counted): the dense paths must launch the tensor-core
@@ -235,7 +254,7 @@ from typing import Optional
 
 import torch
 import torch.distributed as tdist
-from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -251,11 +270,12 @@ from repro_torch.core.request import Request, SLOSpec  # noqa: E402
 from repro_torch.kernels import (build, chunked_prefill, ops,  # noqa: E402
                                  paged_attention, ref, wkv6)
 from repro_torch.launch import dist as dist_launch  # noqa: E402
+from repro_torch.launch import dryrun, hloanalysis  # noqa: E402
 from repro_torch.launch import mesh as mesh_launch  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.models import (mamba2, moe, rwkv6, sharding,  # noqa: E402
-                                transformer)
+                                tp, transformer)
 from repro_torch.models.layers import (MetaGenerator,  # noqa: E402
                                        _dense_init, decode_page_size,
                                        to_e4m3)
@@ -3744,6 +3764,393 @@ def phase_shard_restore() -> None:
               "the whole model")
 
 
+# ------------------------------------------------------------- dry-run
+
+# one full-width cell a family, traced on the host on the 16 x 16 mesh
+DRYRUN_CELLS = (("qwen2-1.5b", "decode_32k"), ("arctic-480b", "decode_32k"),
+                ("rwkv6-7b", "long_500k"), ("zamba2-2.7b", "prefill_32k"),
+                ("whisper-medium", "prefill_32k"),
+                ("paligemma-3b", "train_4k"))
+
+
+def phase_dryrun() -> None:
+    """The port's dry-run (``launch.dryrun.run_cell``) of one cell a family
+    at full width on the ``single`` mesh: this process as rank 0 of a fake
+    group of 256, parameters, cache and inputs meta DTensors, nothing on
+    the card. Every cell must end ``ok``; each prints its bytes a device,
+    dot FLOPs, collective wire bytes, dominant roofline term (H100 peaks)
+    and trace seconds."""
+    try:
+        for arch, shape in DRYRUN_CELLS:
+            rec = dryrun.run_cell(arch, shape, "single", EP_DIR, force=True,
+                                  write=False)
+            check(rec["status"] == "ok", f"dryrun: {arch} {shape}: "
+                  f"{rec.get('error')}")
+            say("dryrun", arch=arch, shape=shape,
+                bytes_per_device=f"{rec['bytes_per_device']:.6e}",
+                dot_flops=f"{rec['cost']['dot_flops']:.6e}",
+                wire_total=f"{rec['collectives']['wire_total']:.6e}",
+                dominant=rec["roofline"]["dominant"],
+                param_collectives=sum(rec["param_collectives"].values()),
+                trace_s=rec["lower_s"])
+    finally:
+        dryrun.release_group()
+
+
+# dryrun_check: (arch, config changes, prefill (rows, tokens), decode steps,
+# cache rows, EP modes of the prefill and the decode)
+CHECK_CELLS = {
+    "qwen2": (ARCH, {}, (4, 1024), 8, 1088, None),
+    "arctic": (ARCTIC, MOE_CUTS[ARCTIC], (4, 256), 4, 320,
+               ("allgather", "alltoall")),
+}
+MEM_TOL = 0.02
+QWEN2_SHARD_GB = 0.805           # shard_restore's measured local bytes a rank
+
+
+def _check_shapes(name: str) -> tuple:
+    _, _, (rows, n), steps, cache_len, _ = CHECK_CELLS[name]
+    return (dict(kind="prefill", seq=n, batch=rows, cache_len=cache_len),
+            dict(kind="decode", seq=cache_len, batch=rows))
+
+
+def _check_cfg(name: str):
+    arch, cut = CHECK_CELLS[name][:2]
+    return dataclasses.replace(get_config(arch), **cut)
+
+
+def _check_eps(name: str, mesh, rules):
+    """The prefill's and the decode's EPInfo (None for a dense model)."""
+    modes = CHECK_CELLS[name][5]
+    if modes is None:
+        return None, None
+    cf = _check_cfg(name).moe_capacity_factor
+    return tuple(_ep_info(mesh, rules, capacity_factor=cf, ep_mode=m)
+                 for m in modes)
+
+
+def _check_weights(name: str, experts: Optional[range] = None) -> dict:
+    cfg = _check_cfg(name)
+    if cfg.is_moe:
+        return _ep_model(cfg, experts if experts is not None
+                         else range(cfg.num_experts))
+    return model_api.build(cfg).init(
+        torch.Generator(device=DEV).manual_seed(EP_SEED))
+
+
+def _check_prompt(name: str):
+    cfg = _check_cfg(name)
+    rows, n = CHECK_CELLS[name][2]
+    prompt = torch.as_tensor(np.random.default_rng(EP_SEED).integers(
+        0, cfg.vocab_size, (rows, n)), dtype=torch.int32, device=DEV)
+    return prompt, torch.full((rows,), n, dtype=torch.int32, device=DEV)
+
+
+def _place_tree(tree, specs, mesh, shapes=None):
+    """``models.tp.place`` of a tree of whole tensors; a leaf shaped
+    otherwise than its ``shapes`` twin is already this rank's shard (an
+    expert table of its own experts) and is wrapped as it is."""
+    if isinstance(tree, dict):
+        return {k: _place_tree(v, specs[k], mesh,
+                               None if shapes is None else shapes[k])
+                for k, v in tree.items()}
+    if shapes is not None and tuple(shapes.shape) != tuple(tree.shape):
+        return DTensor.from_local(
+            tree, mesh, sharding.to_placements(specs, mesh),
+            run_check=False, shape=shapes.shape, stride=shapes.stride())
+    return tp.place(tree, specs, mesh)
+
+
+_FUNCTIONAL = ("all_reduce", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "all_to_all_single")
+
+
+class _HostStaged(hloanalysis.LocalOps):
+    """Every functional collective a rank issues on CUDA tensors (DTensor's
+    redistributions, the ``local_map`` regions' gathers) runs on host
+    copies: gloo's all-gather into a CUDA tensor crashes the process
+    (SIGSEGV, torch 2.11), while the EP path's ``torch.distributed`` calls
+    already stage their CUDA tensors through the host. Entered outside
+    ``StepCost``, which then counts the op on the rank's CUDA tensors as
+    the trace counts it on meta ones."""
+
+    def local_op(self, func, args, kwargs):
+        if func.namespace == "_c10d_functional" and \
+                func._schema.name.split("::")[-1] in _FUNCTIONAL and \
+                args[0].is_cuda:
+            host = func(args[0].cpu(), *args[1:], **kwargs)
+            host = torch.ops._c10d_functional.wait_tensor(host)
+            return host.to(args[0].device)
+        return func(*args, **kwargs)
+
+
+def _dryrun_check_rank(rank: int, root: str, name: str) -> None:
+    with _HostStaged():
+        _dryrun_check_run(rank, root, name)
+
+
+def _dryrun_check_run(rank: int, root: str, name: str) -> None:
+    """One rank of the sharded run: its weights, cache and inputs placed
+    as DTensors under the specs, the memory they take, then the prefill
+    and the decode steps under ``StepCost`` (the prefill and the first
+    decode step counted, the rest timed) with the kernels' launches
+    counted."""
+    mesh, rules = _rank_setup()
+    cfg = _check_cfg(name)
+    api = model_api.build(cfg)
+    eps = _check_eps(name, mesh, rules)
+    steps, cache_len = CHECK_CELLS[name][3:5]
+    rows = CHECK_CELLS[name][2][0]
+    toks = torch.load(Path(root) / "tokens.pt")
+    shapes = api.init(MetaGenerator())
+    pspecs = sharding.param_specs(cfg, shapes, rules)
+    base = torch.cuda.memory_allocated()
+    experts = _own_experts(eps[1], cfg) if cfg.is_moe else None
+    params = _place_tree(_check_weights(name, experts), pspecs, mesh,
+                         shapes if cfg.is_moe else None)
+    _release()
+    cache = api.init_cache(rows, cache_len, DEV)
+    cspecs = sharding.cache_specs(cfg, rules, rows, cache)
+    cache = _place_tree(cache, cspecs, mesh)
+    prompt, lengths = _check_prompt(name)
+    io = sharding.io_specs(cfg, rules, rows)
+    place = lambda t, key: tp.place(t, io[key] if t.dim() == len(io[key])  # noqa: E731
+                                    else sharding.spec(io[key][0]), mesh)
+    inputs = {"tokens": place(prompt, "tokens"),
+              "lengths": place(lengths, "lengths")}
+    _release()
+    placed = torch.cuda.memory_allocated() - base
+    logits_spec = sharding.spec(sharding.batch_spec(rules, rows), None)
+    p_bytes = float(tp.local_bytes(params))
+    c_bytes = float(tp.local_bytes(cache))
+
+    def step(fn, *args):
+        logits, out_cache = fn(params, cache, *args)
+        return (tp.respec(logits, logits_spec, mesh),
+                tp.respec(out_cache, cspecs, mesh))
+
+    _zero_counts()
+    counted, outs = {}, []
+    with _Routes() as routes:
+        with hloanalysis.StepCost(params=params) as cost, tp.step_context():
+            logits, cache = step(lambda p, c, t, n: api.prefill(
+                p, c, t, n, ep=eps[0]), inputs["tokens"], inputs["lengths"])
+        counted["prefill"] = cost
+        outs.append(logits.full_tensor().cpu())
+        pos = lengths.clone()
+        dec_ms = []
+        for i in range(steps):
+            tok = place(toks[i].to(DEV), "lengths")
+            n = place(pos, "lengths")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                with hloanalysis.StepCost(params=params) as cost, \
+                        tp.step_context():
+                    logits, cache = step(lambda p, c, t, n: api.decode(
+                        p, c, t, n, ep=eps[1]), tok, n)
+                counted["decode"] = cost
+            else:
+                with tp.step_context():
+                    logits, cache = step(lambda p, c, t, n: api.decode(
+                        p, c, t, n, ep=eps[1]), tok, n)
+                torch.cuda.synchronize()
+                dec_ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(logits.full_tensor().cpu())
+            pos = pos + 1
+    torch.cuda.synchronize()
+    launches = _counts()
+    torch.save({
+        "placed_bytes": placed, "param_bytes": p_bytes, "cache_bytes": c_bytes,
+        "cost": {k: {"flops": c.result()["flops"],
+                     "kernel_op_flops": dict(c.op_flops),
+                     "collectives": c.result()["collectives"],
+                     "param_counts": dict(c.param_counts),
+                     "kernel_calls": c.kernel_calls}
+                 for k, c in counted.items()},
+        "logits": outs, "launches": launches,
+        "ids": [i.cpu() for i in routes.ids],
+        "model": eps[1].coord((eps[1].seq_split_axis,)) if eps[1] else 0,
+        "decode_ms": statistics.median(dec_ms) if dec_ms else None,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9},
+        Path(root) / f"rank{rank}.pt")
+
+
+def _predict(name: str) -> dict:
+    """The trace of the check's prefill and decode cells on a fake group
+    of 4 with the worker mesh's shape (meta DTensors, nothing on the
+    card)."""
+    dryrun.fake_group(EP_WORLD)
+    try:
+        mesh = mesh_launch.make_mesh((1, EP_WORLD), ("data", "model"), "cuda")
+        rules = sharding.make_rules(mesh)
+        eps = _check_eps(name, mesh, rules)
+        out = {}
+        for (kind, shape), ep in zip(zip(("prefill", "decode"),
+                                         _check_shapes(name)), eps):
+            rec = dryrun.run_cell(CHECK_CELLS[name][0], f"check_{kind}",
+                                  "1x4", EP_DIR, force=True, write=False,
+                                  shape=shape, mesh=mesh,
+                                  cfg=_check_cfg(name),
+                                  ep_fn=lambda _, ep=ep: ep)
+            check(rec["status"] == "ok", f"dryrun_check: trace of {name} "
+                  f"{kind}: {rec.get('error')}")
+            out[kind] = rec
+        return out
+    finally:
+        dryrun.release_group()
+
+
+def _check_one(name: str) -> None:
+    cfg = _check_cfg(name)
+    rows, n = CHECK_CELLS[name][2]
+    steps, cache_len = CHECK_CELLS[name][3:5]
+    pred = _predict(name)
+    for kind, rec in pred.items():
+        say("dryrun_check", model=name, predicted=kind,
+            bytes_per_device=f"{rec['bytes_per_device']:.6e}",
+            arguments=rec["memory"]["arguments"],
+            dot_flops=f"{rec['cost']['dot_flops']:.6e}",
+            wire_total=f"{rec['collectives']['wire_total']:.6e}",
+            counts=rec["collective_counts"], trace_s=rec["lower_s"])
+    # the single-process run of the same weights, then freed
+    root = _dist_dir(f"dryrun_check_{name}")
+    api = model_api.build(cfg)
+    params = _check_weights(name)
+    prompt, lengths = _check_prompt(name)
+    cache = api.init_cache(rows, cache_len, DEV)
+    with _Routes() as routes:
+        want, toks, _ = _generate(api, params, cache, prompt, lengths,
+                                  steps)
+    want_ids = [i.cpu() for i in routes.ids]
+    want = [w.float().cpu() for w in want]
+    torch.save([t.cpu() for t in toks], root / "tokens.pt")
+    del params, cache
+    _release()
+    ranks = _spawn(_dryrun_check_rank, root, name)
+    for r, out in enumerate(ranks):
+        mem = pred["prefill"]["memory"]
+        want_args = mem["argument_size_in_bytes"]
+        got = out["placed_bytes"]
+        say("dryrun_check", model=name, rank=r,
+            placed_bytes=got, predicted_arguments=want_args,
+            param_gb=f"{out['param_bytes'] / 1e9:.4f}",
+            cache_gb=f"{out['cache_bytes'] / 1e9:.4f}",
+            peak_gb=f"{out['peak_gb']:.2f}",
+            decode_ms_per_step=f"{out['decode_ms']:.1f}",
+            transport=repr(GLOO))
+        check(abs(got - want_args) <= MEM_TOL * want_args,
+              f"dryrun_check: {name} rank {r}: {got} bytes placed, the "
+              f"trace's arguments {want_args}")
+        check(out["param_bytes"] == mem["arguments"]["params"]
+              and out["cache_bytes"] == mem["arguments"]["cache"],
+              f"dryrun_check: {name} rank {r}: local params / cache bytes "
+              f"{out['param_bytes']} / {out['cache_bytes']} against the "
+              f"trace's {mem['arguments']}")
+        if name == "qwen2":
+            check(abs(out["param_bytes"] / 1e9 - QWEN2_SHARD_GB) < 0.0005,
+                  f"dryrun_check: qwen2's parameters take "
+                  f"{out['param_bytes'] / 1e9:.4f} GB a rank, shard_restore "
+                  f"measured {QWEN2_SHARD_GB}")
+        for kind, rec in pred.items():
+            c = out["cost"][kind]
+            check(sum(c["param_counts"].values()) == 0,
+                  f"dryrun_check: {name} rank {r} {kind}: collectives on a "
+                  f"parameter {c['param_counts']}")
+            check(c["flops"] == rec["cost"]["dot_flops"],
+                  f"dryrun_check: {name} rank {r} {kind}: {c['flops']} dot "
+                  f"FLOPs, the trace's {rec['cost']['dot_flops']}")
+            coll = {k: v for k, v in c["collectives"].items()
+                    if k != "counts"}
+            check(c["collectives"]["counts"] == rec["collective_counts"]
+                  and coll == rec["collectives"],
+                  f"dryrun_check: {name} rank {r} {kind}: collectives "
+                  f"{c['collectives']} against the trace's "
+                  f"{rec['collectives']} {rec['collective_counts']}")
+            say("dryrun_check", model=name, rank=r, step=kind,
+                dot_flops=f"{c['flops']:.6e}",
+                wire_total=f"{c['collectives']['wire_total']:.6e}",
+                counts=c["collectives"]["counts"], matches_trace=True,
+                kernel_calls=sorted({str(k) for k in c["kernel_calls"]}))
+        for kname in ("chunked_prefill", "paged_attention"):
+            got = out["launches"][kname]
+            check(got["tensor_core"] > 0
+                  and sum(got.values()) == got["tensor_core"],
+                  f"dryrun_check: {name} rank {r}: {kname} launched {got}, "
+                  "want its tensor_core variant only")
+    got = [g.to(DEV) for g in ranks[0]["logits"]]
+    wanted = [w.to(DEV) for w in want]
+    if cfg.is_moe:
+        layers = cfg.num_layers
+        models = [r["model"] for r in ranks]
+        got_ids = ranks[0]["ids"][:layers] + _chunk_rows(
+            [{"ids": r["ids"][layers:]} for r in ranks], "ids", models)
+        widths = [n] + [1] * steps
+        flips, keep = _route_flips([i.to(DEV) for i in got_ids],
+                                   [i.to(DEV) for i in want_ids], rows,
+                                   widths, layers)
+        rel, held = _held_logit_error(got, wanted, keep)
+        say("dryrun_check", model=name, routes_differing=flips,
+            outputs_held=f"{held}/{rows * len(widths)}")
+        check(held > 0, "dryrun_check: every output's route flipped")
+    else:
+        rel = max(((g - w).norm() / w.norm()).item()
+                  for g, w in zip(got, wanted))
+    spread = max((a - b).abs().max().item() for r in ranks[1:]
+                 for a, b in zip(r["logits"], ranks[0]["logits"]))
+    say("dryrun_check", model=name, logits_rel_l2=f"{rel:.3e}",
+        tol=MODEL_TOL[torch.bfloat16], ranks_max_abs_spread=f"{spread:.3e}")
+    check(all(torch.isfinite(g).all().item() for g in got),
+          f"dryrun_check: {name}: non-finite logits")
+    check(rel <= MODEL_TOL[torch.bfloat16], f"dryrun_check: {name}: logits "
+          f"differ from the single-process run by {rel:.3e} (relative L2)")
+
+
+def phase_dryrun_check() -> None:
+    """The trace's prediction against a real sharded run: 4 gloo ranks on
+    the one card, CUDA DTensors on the (1, 4) worker mesh. Full-width
+    qwen2-1.5b (a prefill of 4 rows x 1024 tokens, 8 decode steps; its 12
+    query heads split 3 a rank over the one KV head they read, the KV
+    cache split along its rows) and arctic-480b cut to 2 of 35 layers
+    (4 x 256, 4 decode steps; heads split 14 / 2 a rank, experts 32 a
+    rank). Each is first traced (``_predict``) and run single-process
+    (freed before the ranks start). Each rank must place the bytes the
+    trace's arguments reckon (within ``MEM_TOL``; qwen2's parameters at
+    shard_restore's 0.805 GB), count the trace's dot FLOPs and its
+    collectives by kind, count and bytes exactly, take no collective on a
+    parameter, launch the tensor-core attention kernels only, and give the
+    single-process logits (``MODEL_TOL``; arctic on the outputs whose
+    routes agree)."""
+    for name in CHECK_CELLS:
+        _check_one(name)
+        _release()
+
+
+# the stateful families' serve phases: eager, host-bound steps, where host
+# work a change adds shows first (``kernel_ab.py --serve`` runs these)
+STATEFUL_SERVES = ("serve_rwkv", "serve_zamba2")
+
+
+def serve_table() -> tuple:
+    """Every serve phase, in order: (phase, arch, kernels, the launch
+    variants each kernel must show[, config changes]), ``phase_serve``'s
+    arguments after the card."""
+    attention = {"chunked_prefill": chunked_prefill,
+                 "paged_attention": paged_attention}
+    tensor_cores = dict.fromkeys(attention, ("tensor_core",))
+    tensor_cores_e4m3 = dict.fromkeys(attention, ("tensor_core_e4m3",))
+    fp8 = {"kv_cache_quant": True}
+    return (
+        ("serve", ARCH, attention, tensor_cores),
+        ("serve_rwkv", RWKV, {"wkv6": wkv6}, {"wkv6": ("chunk", "decode")}),
+        ("serve_gemma2", GEMMA2, attention, tensor_cores),
+        ("serve_fp8", ARCH, attention, tensor_cores_e4m3, fp8),
+        ("serve_gemma2_fp8", GEMMA2, attention, tensor_cores_e4m3, fp8),
+        ("serve_moe", ARCTIC, attention, tensor_cores, MOE_CUTS[ARCTIC]),
+        ("serve_vlm", PALIGEMMA, attention, tensor_cores),
+        ("serve_zamba2", ZAMBA2, attention, tensor_cores))
+
+
 def run_phase(name: str, fn, *args):
     """``fn(*args)``, a line with the phase's seconds, then what the phase
     left freed (``_release``)."""
@@ -3789,28 +4196,17 @@ def main() -> None:
     run_phase("profile_zamba2", phase_profile_stateful, card, ZAMBA2,
               "profile_zamba2")
     run_phase("calibrate", phase_calibrate, card, profiled)
-    attention = {"chunked_prefill": chunked_prefill,
-                 "paged_attention": paged_attention}
-    tensor_cores = dict.fromkeys(attention, ("tensor_core",))
-    tensor_cores_e4m3 = dict.fromkeys(attention, ("tensor_core_e4m3",))
-    serves = (
-        ("serve", ARCH, attention, tensor_cores),
-        ("serve_rwkv", RWKV, {"wkv6": wkv6}, {"wkv6": ("chunk", "decode")}),
-        ("serve_gemma2", GEMMA2, attention, tensor_cores),
-        ("serve_fp8", ARCH, attention, tensor_cores_e4m3, fp8),
-        ("serve_gemma2_fp8", GEMMA2, attention, tensor_cores_e4m3, fp8),
-        ("serve_moe", ARCTIC, attention, tensor_cores, MOE_CUTS[ARCTIC]),
-        ("serve_vlm", PALIGEMMA, attention, tensor_cores),
-        ("serve_zamba2", ZAMBA2, attention, tensor_cores))
     launches = {"model_ring": ring_launches, "paged_store": store_launches,
                 "model_vlm": vlm_launches, "model_whisper": whisper_launches}
-    for phase, *args in serves:
+    for phase, *args in serve_table():
         launches[phase] = run_phase(phase, phase_serve, card, phase, *args)
     run_phase("train", phase_train, card)
     run_phase("train_families", phase_train_families)
     run_phase("moe_ep", phase_moe_ep)
     run_phase("model_moe_ep", phase_model_moe_ep)
     run_phase("shard_restore", phase_shard_restore)
+    run_phase("dryrun", phase_dryrun)
+    run_phase("dryrun_check", phase_dryrun_check)
     # a record's launches: its device kernel's on its main path (the e4m3
     # records' on the same path with the fp8 cache)
     main = {"chunked_prefill": ("serve", "chunked_prefill.tensor_core"),

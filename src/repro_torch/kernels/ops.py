@@ -10,6 +10,9 @@ while grad mode is on: the training forwards compute attention with
 ``models.layers.attention_scores`` and WKV with ``models.rwkv6``'s
 ``wkv_chunked`` / ``wkv_scan``, as the JAX package trains through XLA.
 
+Every call, on any device, reports its dense count to the listeners of
+``kernels.cost`` (nothing is done when there are none).
+
 ``LaunchTally`` keeps the wrappers' launch counts true under CUDA graphs:
 a wrapper counts in Python where it launches, and a graph replay runs the
 captured launches without that code.
@@ -18,12 +21,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import chunked_prefill, paged_attention, ref, wkv6
+from repro_torch.kernels import (chunked_prefill, cost, paged_attention, ref,
+                                 wkv6)
 
 
 def _device_kind(name: str, *tensors: torch.Tensor) -> str:
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"} or kinds == {"cuda"}:
+    if kinds in ({"cpu"}, {"cuda"}, {"meta"}):
         return kinds.pop()
     raise ValueError(f"{name}: no kernel for tensors on {sorted(kinds)}")
 
@@ -41,7 +45,13 @@ def paged_attention_op(q, k_pages, v_pages, block_tables, lengths,
                        softcap=None, window=None):
     args = (q, k_pages, v_pages, block_tables, lengths)
     _refuse_grad("paged_attention_op", *args)
-    if _device_kind("paged_attention_op", *args) == "cpu":
+    kind = _device_kind("paged_attention_op", *args)
+    if cost.LISTENERS:
+        cost.report("paged_attention", q, k_pages,
+                    cost.paged_attention_cost(q, k_pages, block_tables))
+    if kind == "meta":
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
+    if kind == "cpu":
         return ref.paged_attention_ref(*args, softcap=softcap, window=window)
     return paged_attention.paged_attention(*args, softcap=softcap,
                                            window=window)
@@ -51,7 +61,13 @@ def chunked_prefill_op(q, k_cache, v_cache, starts, softcap=None,
                        window=None):
     args = (q, k_cache, v_cache, starts)
     _refuse_grad("chunked_prefill_op", *args)
-    if _device_kind("chunked_prefill_op", *args) == "cpu":
+    kind = _device_kind("chunked_prefill_op", *args)
+    if cost.LISTENERS:
+        cost.report("chunked_prefill", q, k_cache,
+                    cost.chunked_prefill_cost(q, k_cache, v_cache))
+    if kind == "meta":
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
+    if kind == "cpu":
         return ref.chunked_prefill_attention_ref(*args, softcap=softcap,
                                                  window=window)
     return chunked_prefill.chunked_prefill_attention(*args, softcap=softcap,
@@ -71,7 +87,13 @@ def wkv6_op(r, k, v, w, u, s0, mode: str):
         raise ValueError(f"wkv6_op: decode takes one token, got T="
                          f"{r.shape[1]}")
     args = (r, k, v, w, u, s0)
-    if _device_kind("wkv6_op", *args) == "cpu":
+    kind = _device_kind("wkv6_op", *args)
+    if cost.LISTENERS:
+        cost.report("wkv6", r, s0, cost.wkv6_cost(*args, mode))
+    if kind == "meta":
+        return (torch.empty(r.shape, dtype=torch.float32, device="meta"),
+                torch.empty(s0.shape, dtype=torch.float32, device="meta"))
+    if kind == "cpu":
         return ref.wkv6_ref(*args, mode)
     return wkv6.wkv6(*args)
 

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import ops
+from repro_torch.models import tp
 
 
 # ---------------------------------------------------------------------------
@@ -363,9 +364,9 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
     q = _project(x, params["wq"])
     if cfg.qkv_bias:
         q = q + params["bq"]
+    scores = tp.scores_attention if tp.is_dt(q) else attention_scores
     if cross_kv is not None:
-        out = attention_scores(q, *cross_kv, mask, cfg.attn_softcap,
-                               cfg.attn_q_chunk)
+        out = scores(q, *cross_kv, mask, cfg.attn_softcap, cfg.attn_q_chunk)
         return _out_project(params, out), None
     k, v = compute_kv(params, x, cfg)
     if rope:
@@ -374,11 +375,16 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
         q = rotate(q, rot)
         k = rotate(k, rot)
     if kv_cache is None:
-        out = attention_scores(q, k, v, mask, cfg.attn_softcap,
-                               cfg.attn_q_chunk)
+        out = scores(q, k, v, mask, cfg.attn_softcap, cfg.attn_q_chunk)
         return _out_project(params, out), (k, v)
 
     k_cache, v_cache = kv_cache
+    if tp.is_dt(q):
+        out = tp.cache_attention(q, k, v, k_cache, v_cache,
+                                 cache_positions=cache_positions,
+                                 lengths=lengths, mask=mask,
+                                 softcap=cfg.attn_softcap)
+        return _out_project(params, out), (k_cache, v_cache)
     _cache_write(k_cache, k, cache_positions)
     _cache_write(v_cache, v, cache_positions)
 
@@ -409,7 +415,8 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
 def _out_project(params, out: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matmul over the flattened heads."""
     h, hd, d = params["wo"].shape
-    return out.reshape(*out.shape[:-2], h * hd) @ params["wo"].reshape(h * hd, d)
+    y = out.reshape(*out.shape[:-2], h * hd) @ params["wo"].reshape(h * hd, d)
+    return tp.rows_layout(y, out)
 
 
 def compute_kv(params, x: torch.Tensor, cfg: ModelConfig):
@@ -550,7 +557,7 @@ def apply_mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         u = _activate(x @ params["w_gate"], cfg.mlp_activation) * u
     else:
         u = _activate(u, cfg.mlp_activation)
-    return u @ params["w_down"]
+    return tp.rows_layout(u @ params["w_down"], x)
 
 
 # ---------------------------------------------------------------------------
@@ -571,7 +578,10 @@ def embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     weights' dtype (as JAX rounds it). The scale is a CPU scalar: a CUDA op
     reads it on the host as a kernel argument, so a captured graph holds it
     as a constant."""
-    x = params["table"][tokens.long()]
+    if tp.is_dt(params["table"]):
+        x = tp.embed(params["table"], tokens)
+    else:
+        x = params["table"][tokens.long()]
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
 
 
@@ -591,9 +601,18 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy of logits (B, S, V) f32 against labels (B, S):
     ``logsumexp - logits[label]``, the JAX ``softmax_xent``'s function
     without its (B, S, V) one-hot."""
+    if tp.is_dt(logits):
+        return tp.xent(logits, labels).mean()
     lse = torch.logsumexp(logits, dim=-1)
     true = logits.gather(-1, labels.long()[..., None])[..., 0]
     return (lse - true).mean()
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) -> x[b, idx[b]] (B, d)."""
+    if tp.is_dt(x):
+        return tp.take_rows(x, idx)
+    return x[torch.arange(x.shape[0], device=x.device), idx]
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import tp
 from repro_torch.models.layers import ModelConfig
 
 D_HEAD = 64
@@ -196,19 +197,22 @@ def apply_block(bp, x, state, cfg: ModelConfig, seq_mode: str):
     Bm, Cm = bc.chunk(2, dim=-1)
     dt = F.softplus(dt_raw.float() + bp["dt_bias"])
     A = -torch.exp(bp["A_log"])
-    xh = xs.reshape(b, t, n_heads, D_HEAD)
+    xh = tp.split_heads(xs, (b, t, n_heads, D_HEAD))
 
+    run = tp.ssd if tp.is_dt(xh) else (lambda form, *a: form(*a))
     if seq_mode == "decode":
-        y, new_ssd = ssd_decode(xh[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0],
-                                bp["D"], state["ssd"])
+        y, new_ssd = run(ssd_decode, xh[:, 0], dt[:, 0], A, Bm[:, 0],
+                         Cm[:, 0], bp["D"], state["ssd"])
         y = y[:, None]
     elif seq_mode == "chunked" and t % CHUNK == 0 and t >= CHUNK:
-        y, new_ssd = ssd_chunked(xh, dt, A, Bm, Cm, bp["D"], state["ssd"])
+        y, new_ssd = run(ssd_chunked, xh, dt, A, Bm, Cm, bp["D"],
+                         state["ssd"])
     else:
-        y, new_ssd = ssd_scan(xh, dt, A, Bm, Cm, bp["D"], state["ssd"])
+        y, new_ssd = run(ssd_scan, xh, dt, A, Bm, Cm, bp["D"], state["ssd"])
 
-    y = y.reshape(b, t, d_inner).to(x.dtype)
-    y = L.rms_norm(y * F.silu(z), bp["gate_norm"]["scale"], cfg.norm_eps)
-    out = y @ bp["out_proj"]
+    y = tp.merge_heads(y, (b, t, d_inner)).to(x.dtype)
+    norm = tp.channel_rms_norm if tp.is_dt(y) else L.rms_norm
+    y = norm(y * F.silu(z), bp["gate_norm"]["scale"], cfg.norm_eps)
+    out = tp.rows_layout(y @ bp["out_proj"], x)
     return out, {"conv_x": new_conv_x, "conv_bc": new_conv_bc,
                  "ssd": new_ssd}

@@ -55,6 +55,7 @@ import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.launch.mesh import axis_sizes
+from repro_torch.models import tp
 from repro_torch.models.layers import (ModelConfig, _activate, _dense_init,
                                       _normal)
 
@@ -205,7 +206,7 @@ def _shared_expert(params, x: torch.Tensor, cfg: ModelConfig):
         return torch.zeros_like(x)
     sp = params["shared"]
     g = _activate(x @ sp["w_gate"], cfg.mlp_activation)
-    return (g * (x @ sp["w_up"])) @ sp["w_down"]
+    return tp.rows_layout((g * (x @ sp["w_up"])) @ sp["w_down"], x)
 
 
 
@@ -487,4 +488,6 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
     if not isinstance(ep, EPInfo):
         raise TypeError(f"apply_moe: ep must be an EPInfo or None, got "
                         f"{type(ep).__name__}")
+    if tp.is_dt(x):
+        return tp.moe(params, x, cfg, ep) + _shared_expert(params, x, cfg)
     return apply_moe_ep(params, x, cfg, ep)

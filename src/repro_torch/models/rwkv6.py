@@ -39,6 +39,7 @@ from repro_torch.kernels import ops
 # ModelConfig only through L: kernels.ref imports this module, possibly
 # while models.layers is still half-imported
 from repro_torch.models import layers as L
+from repro_torch.models import tp
 
 LORA_DECAY = 64
 LORA_MIX = 32
@@ -209,7 +210,11 @@ def wkv_decode(r, k, v, w, u, s):
 
 
 def _token_shift(x, last):
-    """shifted[t] = x[t-1], with ``last`` filling t=0. x: (B, T, d)."""
+    """shifted[t] = x[t-1], with ``last`` filling t=0. x: (B, T, d). A
+    sharded ``last`` (the state splits d over the model axis) is first laid
+    out as ``x`` (gathered along d): else the shift, and every product of
+    it, would be split along d while the weights split their outputs."""
+    last = tp.keep(last, x)
     return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
 
 
@@ -218,23 +223,27 @@ def _time_mix(p, x, last, wkv_state, cfg: L.ModelConfig, *, seq_mode: str):
     nh, hd = head_dims(cfg)
     xx = _token_shift(x, last) - x
     xbase = x + xx * p["mix_x"]
-    lora = torch.tanh(xbase @ p["mix_w1"]).view(b, t, N_MIX, LORA_MIX)
+    lora = tp.split_heads(torch.tanh(xbase @ p["mix_w1"]),
+                          (b, t, N_MIX, LORA_MIX))
     mixes = p["mix_base"] + torch.einsum("btnm,nmd->btnd", lora,
                                          p["mix_w2"])
     xw, xk, xv, xr, xg = [x + xx * mixes[:, :, i] for i in range(N_MIX)]
 
-    r = (xr @ p["wr"]).view(b, t, nh, hd)
-    k = (xk @ p["wk"]).view(b, t, nh, hd)
-    v = (xv @ p["wv"]).view(b, t, nh, hd)
+    r = tp.split_heads(xr @ p["wr"], (b, t, nh, hd))
+    k = tp.split_heads(xk @ p["wk"], (b, t, nh, hd))
+    v = tp.split_heads(xv @ p["wv"], (b, t, nh, hd))
     g = F.silu(xg @ p["wg"])
 
     decay = p["decay_base"] + (torch.tanh(xw @ p["decay_w1"])
                                @ p["decay_w2"]).float()
     # the clip keeps |log w| <= e^0.5, so the chunked forms' factored
     # exponents stay f32-safe; every form sees the same w
-    w = torch.exp(-torch.exp(decay.clamp(-20.0, 0.5))).view(b, t, nh, hd)
+    w = tp.split_heads(torch.exp(-torch.exp(decay.clamp(-20.0, 0.5))),
+                       (b, t, nh, hd))
 
-    if seq_mode == "train":
+    if tp.is_dt(r):
+        out, new_s = tp.wkv(r, k, v, w, p["bonus_u"], wkv_state, seq_mode)
+    elif seq_mode == "train":
         out, new_s = wkv_sequence(r, k, v, w, p["bonus_u"], wkv_state)
     else:
         out, new_s = ops.wkv6_op(r, k, v, w, p["bonus_u"], wkv_state,
@@ -243,10 +252,10 @@ def _time_mix(p, x, last, wkv_state, cfg: L.ModelConfig, *, seq_mode: str):
     # per-head group norm (population variance), in f32
     mu = out.mean(dim=-1, keepdim=True)
     var = (out - mu).square().mean(dim=-1, keepdim=True)
-    out = ((out - mu) * torch.rsqrt(var + 64e-5)).reshape(b, t, d)
+    out = tp.merge_heads((out - mu) * torch.rsqrt(var + 64e-5), (b, t, d))
     out = out * p["ln_out_scale"].float() + p["ln_out_bias"].float()
     out = out.to(x.dtype) * g
-    return out @ p["wo"], x[:, -1, :], new_s
+    return tp.rows_layout(out @ p["wo"], x), x[:, -1, :], new_s
 
 
 def _channel_mix(p, x, last):
@@ -254,7 +263,8 @@ def _channel_mix(p, x, last):
     xk = x + xx * p["mix_k"]
     xr = x + xx * p["mix_r"]
     k = torch.relu(xk @ p["wk"]).square()
-    return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1, :]
+    return (torch.sigmoid(xr @ p["wr"]) * tp.rows_layout(k @ p["wv"], x),
+            x[:, -1, :])
 
 
 def _block(bp, x, state, cfg: L.ModelConfig, seq_mode: str):
@@ -262,10 +272,10 @@ def _block(bp, x, state, cfg: L.ModelConfig, seq_mode: str):
     h = L.apply_norm(bp["norm_tm"], x, cfg)
     tm_out, new_ts_tm, new_wkv = _time_mix(bp["tm"], h, ts_tm, wkv_s, cfg,
                                            seq_mode=seq_mode)
-    x = x + tm_out
+    x = tp.keep(x + tm_out, x)
     h = L.apply_norm(bp["norm_cm"], x, cfg)
     cm_out, new_ts_cm = _channel_mix(bp["cm"], h, ts_cm)
-    return x + cm_out, (new_ts_tm, new_ts_cm, new_wkv)
+    return tp.keep(x + cm_out, x), (new_ts_tm, new_ts_cm, new_wkv)
 
 
 def _run(params, x, state, cfg: L.ModelConfig, seq_mode: str):
@@ -293,7 +303,7 @@ def prefill(params, state, tokens, lengths, cfg: L.ModelConfig):
     x, state = _run(params, x, state, cfg, "chunked")
     b, s, _ = x.shape
     idx = (lengths.long() - 1).clamp(0, s - 1)
-    last = x[torch.arange(b, device=x.device), idx]
+    last = L.take_rows(x, idx)
     last = L.apply_norm(params["final_norm"], last[:, None], cfg)
     return L.unembed(params["embed"], last, cfg)[:, 0], state
 

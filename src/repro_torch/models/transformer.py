@@ -49,6 +49,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import tp
 from repro_torch.models.layers import MaskSpec, ModelConfig
 
 NO_WINDOW = (2 ** 31 - 1) // 2  # "window" that never masks
@@ -184,7 +185,7 @@ def _block_fn(bp, x, cfg: ModelConfig, *, positions, mask: MaskSpec, window,
         cache_positions=cache_positions, lengths=lengths, tables=tables)
     if "norm_attn_post" in bp:
         attn_out = L.apply_norm(bp["norm_attn_post"], attn_out, cfg)
-    x = x + attn_out
+    x = tp.keep(x + attn_out, x)
     h = L.apply_norm(bp["norm_mlp"], x, cfg)
     if cfg.is_moe:
         mlp_out = M.apply_moe(bp["moe"], h, cfg, ep)
@@ -194,7 +195,7 @@ def _block_fn(bp, x, cfg: ModelConfig, *, positions, mask: MaskSpec, window,
         mlp_out = L.apply_mlp(bp["mlp"], h, cfg)
     if "norm_mlp_post" in bp:
         mlp_out = L.apply_norm(bp["norm_mlp_post"], mlp_out, cfg)
-    return x + mlp_out, new_kv
+    return tp.keep(x + mlp_out, x), new_kv
 
 
 def _run_blocks(params, x, cfg: ModelConfig, *, positions, mask, cache,
@@ -222,7 +223,7 @@ def _run_blocks(params, x, cfg: ModelConfig, *, positions, mask, cache,
 
 def _last_logits(params, x, idx, cfg: ModelConfig):
     """Final norm + unembed of x[b, idx[b]] -> (B, V) f32."""
-    last = x[torch.arange(x.shape[0], device=x.device), idx]
+    last = L.take_rows(x, idx)
     last = L.apply_norm(params["final_norm"], last[:, None], cfg)
     return L.unembed(params["embed"], last, cfg)[:, 0]
 

@@ -33,6 +33,7 @@ import functools
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import tp
 from repro_torch.models.layers import MaskSpec, ModelConfig
 
 # rows of the decoder's sinusoid table before a prompt's own (JAX's)
@@ -93,9 +94,9 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = L.apply_norm(bp["norm_attn"], x, cfg)
         attn, _ = L.apply_attention(bp["attn"], h, cfg, positions=positions,
                                     mask=MaskSpec("full"), rope=False)
-        x = x + attn
+        x = tp.keep(x + attn, x)
         h = L.apply_norm(bp["norm_mlp"], x, cfg)
-        x = x + L.apply_mlp(bp["mlp"], h, cfg)
+        x = tp.keep(x + L.apply_mlp(bp["mlp"], h, cfg), x)
     return L.apply_norm(params["enc_norm"], x, cfg)
 
 
@@ -119,14 +120,14 @@ def _dec_block(bp, x, cfg: ModelConfig, *, positions, mask, kv, cross_kv,
         bp["self_attn"], h, cfg, positions=positions, mask=mask, kv_cache=kv,
         cache_positions=cache_positions, lengths=lengths, rope=False,
         tables=tables)
-    x = x + attn
+    x = tp.keep(x + attn, x)
     h = L.apply_norm(bp["norm_cross"], x, cfg)
     cross, _ = L.apply_attention(
         bp["cross_attn"], h, cfg, positions=positions, mask=MaskSpec("full"),
         cross_kv=cross_kv, rope=False)
-    x = x + cross
+    x = tp.keep(x + cross, x)
     h = L.apply_norm(bp["norm_mlp"], x, cfg)
-    return x + L.apply_mlp(bp["mlp"], h, cfg)
+    return tp.keep(x + L.apply_mlp(bp["mlp"], h, cfg), x)
 
 
 def _run_decoder(params, x, cfg: ModelConfig, *, positions, mask, cache,
@@ -176,7 +177,7 @@ def prefill(params, cache, frames, tokens, lengths, cfg: ModelConfig):
                             cache_positions=zero)
     x = L.apply_norm(params["final_norm"], x, cfg)
     idx = (lengths.long() - 1).clamp(0, s - 1)
-    last = x[torch.arange(b, device=x.device), idx]
+    last = L.take_rows(x, idx)
     return L.unembed(params["embed"], last[:, None], cfg)[:, 0], cache
 
 

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.models import tp
 from repro_torch.models.layers import MaskSpec, ModelConfig
 
 def n_shared_invocations(cfg: ModelConfig) -> int:
@@ -76,10 +77,10 @@ def _shared_block(sp, h, x0, cfg: ModelConfig, *, positions, mask, kv,
     attn_out, _ = L.apply_attention(
         sp["attn"], z, cfg, positions=positions, mask=mask, kv_cache=kv,
         cache_positions=cache_positions, lengths=lengths, tables=tables)
-    a = a_in + attn_out
+    a = tp.keep(a_in + attn_out, h)
     z = L.apply_norm(sp["norm_mlp"], a, cfg)
-    a = a + L.apply_mlp(sp["mlp"], z, cfg)
-    return h + a @ sp["out_proj"]
+    a = tp.keep(a + L.apply_mlp(sp["mlp"], z, cfg), h)
+    return tp.keep(h + a @ sp["out_proj"], h)
 
 
 def _run(params, x, state, cfg: ModelConfig, seq_mode: str, *, positions,
@@ -100,7 +101,7 @@ def _run(params, x, state, cfg: ModelConfig, seq_mode: str, *, positions,
         for i in range(lo, min(cfg.num_layers, lo + cfg.attn_every)):
             out, new = M2.apply_block(L.layer(params["blocks"], i), x,
                                       L.layer(mamba, i), cfg, seq_mode)
-            x = x + out
+            x = tp.keep(x + out, x)
             for n, value in new.items():
                 mamba[n][i].copy_(value)
         x = _shared_block(
@@ -126,7 +127,7 @@ def prefill(params, state, tokens, lengths, cfg: ModelConfig):
                     mask=MaskSpec("causal"), cache_positions=zero)
     x = L.apply_norm(params["final_norm"], x, cfg)
     idx = (lengths.long() - 1).clamp(0, s - 1)
-    last = x[torch.arange(b, device=x.device), idx]
+    last = L.take_rows(x, idx)
     return L.unembed(params["embed"], last[:, None], cfg)[:, 0], state
 
 
@@ -164,7 +165,7 @@ def forward_train(params, tokens, cfg: ModelConfig):
     for inv in range(n_shared_invocations(cfg)):
         lo = inv * cfg.attn_every
         for bp in blocks[lo:lo + cfg.attn_every]:
-            x = x + block(bp, x)
+            x = tp.keep(x + block(bp, x), x)
         x = _shared_block(params["shared"], x, x0, cfg, positions=positions,
                           mask=MaskSpec("causal"), kv=None,
                           cache_positions=None, lengths=None, tables=tables)

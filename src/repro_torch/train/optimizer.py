@@ -129,10 +129,24 @@ def global_norm(tree) -> torch.Tensor:
                         for x in leaves(tree)]).sum().sqrt()
 
 
+def _as_state(g, m):
+    """A DTensor gradient in its state's placements (ZeRO-1: a gradient
+    that is a partial sum over the data axis is reduce-scattered onto the
+    rank's slice of the state); a plain one as it is."""
+    placements = getattr(m, "placements", None)
+    if placements is None or tuple(g.placements) == tuple(placements):
+        return g
+    return g.redistribute(m.device_mesh, placements)
+
+
 @torch.no_grad()
 def apply_updates(params, grads, state, cfg: AdamWConfig = AdamWConfig()):
     """Returns (new_params, state): ``state`` updated in place. Grads may
-    be bf16; the math is f32, leaf by leaf."""
+    be bf16; the math is f32, leaf by leaf. DTensor grads are first laid
+    out as their state (``_as_state``); the new params keep the state's
+    placements, and a sharded step gathers them back to the params'
+    specs (``models.tp.respec``)."""
+    grads = tree_map(_as_state, grads, state["m"])
     lr = _schedule(cfg, state["step"])
     state["step"] += 1
     step = state["step"].float()

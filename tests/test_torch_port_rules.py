@@ -118,3 +118,60 @@ def test_kernel_input_checks_refuse_what_the_kernels_do_not_take():
     for d in (12, 264):
         with pytest.raises(ValueError, match="head_dim"):
             build.check_head_dim("k", d)
+
+
+# every module of the JAX package has a counterpart in the port, but those
+# ROADMAP gives none by design: compat.py (JAX version shims) and analysis/
+# (repro-lint, an AST checker of src/repro)
+NO_COUNTERPART = ("compat.py", "analysis/")
+JAX_MODULES = sorted(
+    str(p.relative_to(ROOT / "src" / "repro"))
+    for p in (ROOT / "src" / "repro").rglob("*.py")
+    if not str(p.relative_to(ROOT / "src" / "repro")).startswith(
+        NO_COUNTERPART))
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_every_jax_module_has_a_counterpart(rel):
+    assert (PORT / rel).exists(), f"src/repro/{rel} has no counterpart"
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.dryrun",
+                                    "repro_torch.launch.hillclimb",
+                                    "repro_torch.launch.hloanalysis",
+                                    "repro_torch.models.tp"])
+def test_dry_run_modules_load_neither_jax_nor_repro(module):
+    """Imported in a fresh interpreter, the module pulls in no module of
+    JAX or of the JAX package."""
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep \
+        + env.get("PYTHONPATH", "")
+    code = (f"import sys, {module}; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert res.returncode == 0, res.stdout + res.stderr[-2000:]
+
+
+@pytest.mark.parametrize("path", sorted((PORT / "kernels").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_kernels_import_nothing_of_launch(path):
+    """The kernel layer does not depend on the launchers and their
+    analysis: the cost analysis subscribes to ``kernels.cost``, not the
+    other way round."""
+    above = {"repro_torch.launch"}
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module] + [f"{node.module}.{a.name}"
+                                     for a in node.names]
+        bad = [n for n in names if any(n == m or n.startswith(m + ".")
+                                       for m in above)]
+        assert not bad, f"kernels/{path.name} imports {bad}"
