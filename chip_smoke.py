@@ -151,6 +151,20 @@ Phases (one line each, a non-zero exit on any failure):
   serve_zamba2  the same on zamba2-2.7b (the hybrid main path: both
             attention kernels' tensor-core bf16 instances at D = 80 and no
             other)
+  serve_gemma2_long  the same on gemma2-2b past its 4096-token window:
+            the longctx scenario's trace (rate 1.0, 5 s, seed 1) under the
+            same SLO class, replayed through --trace-csv, into slots of
+            8192 tokens (prompts capped at 6144, outputs at 128); the
+            cache's size stated before the run and read after it; at least
+            half the requests reach a length past 4096, both attention
+            kernels are given window 4096 (eagerly or captured), on their
+            tensor-core variants only, and every request finishes
+  quickstart  the port's quickstart (src/repro_torch/examples/
+            quickstart.py) on the card for qwen2-1.5b, gemma2-2b and
+            rwkv6-7b at SMOKE size (f32): prefill, 8 decode steps, 3 AdamW
+            steps; the CUDA-core attention variants or both WKV kernels
+            launch (counts zeroed just before each run), and the logits
+            are held to the plain versions' on the same weights and tokens
   train     the training main path on full-width qwen2-1.5b (bf16, remat
             "dots"): 20 AdamW steps (lr 1e-3, warmup 5, f32 master copy) of
             8 x 512 tokens from train/data.py's stream. Step 0 by its parts:
@@ -164,7 +178,10 @@ Phases (one line each, a non-zero exit on any failure):
             step's forward / backward / optimizer parts
             with the card synchronised between them, their wall ms, then
             (another step, profiled) their device ms, the GEMMs' and the
-            plain attention's shares and the top kernels; then api.prefill of 2 rows x 256 on the trained weights
+            plain attention's shares and the top kernels; the measured
+            peak against the dry-run's prediction of the same step (traced
+            on a fake group of 1, a 1 x 1 mesh), within 10% of the predicted
+            transient; then api.prefill of 2 rows x 256 on the trained weights
             through the tensor-core prefill kernel, its last logits held to
             forward_train's at the same positions (MODEL_TOL, bf16)
   train_families  every family's SMOKE config in f32 (qwen2, gemma2,
@@ -217,7 +234,11 @@ Phases (one line each, a non-zero exit on any failure):
             and bytes by kind) equal to the trace's, no collective on a
             parameter, the tensor-core attention kernels only, logits held
             to the single-process run (arctic's where routes agree); each
-            rank's peak memory and decode ms (gloo through the host)
+            rank's peak memory and decode ms (gloo through the host); then
+            one prefill and one decode step more, each from a peak reset
+            just before it: the measured step peak within the larger of
+            10% of the predicted transient and 64 MiB of the trace's
+            predicted peak (bytes_per_device_incl_cpu_temps)
 Each phase prints its seconds. Each serve phase zeroes the kernels' launch counts just before it and reads
 them just after, per device kernel variant too (a CUDA graph replay adds
 what its capture counted): the dense paths must launch the tensor-core
@@ -237,6 +258,7 @@ no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -266,7 +288,8 @@ import numpy as np  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.request import Request, SLOSpec  # noqa: E402
+from repro_torch.core.request import Request, SLOClass, SLOSpec  # noqa: E402
+from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.kernels import (build, chunked_prefill, ops,  # noqa: E402
                                  paged_attention, ref, wkv6)
 from repro_torch.launch import dist as dist_launch  # noqa: E402
@@ -288,6 +311,9 @@ from repro_torch.serving.executor import ClusterRealExecutors  # noqa: E402
 from repro_torch.serving.paged_store import PagedKVStore  # noqa: E402
 from repro_torch.train import checkpoint, optimizer  # noqa: E402
 from repro_torch.train.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.workload import get_scenario  # noqa: E402
+from repro_torch.workload.csvio import save_csv  # noqa: E402
+from repro_torch.workload.scenario import Scenario  # noqa: E402
 
 DEV = torch.device("cuda")
 E4M3 = torch.float8_e4m3fn
@@ -2925,13 +2951,79 @@ class _ConfigChanges:
         configs.get_config = self.saved
 
 
+# the explicit SLO class every serve phase serves (below), and the slots of
+# each worker's cache (launch/serve.py's ClusterRealExecutors)
+SERVE_CLASS = SLOClass(name="chat", ttft=5.0, tpot=0.5)
+SERVE_SLOTS = 8
+
+
+def _scenario_csv(phase: str, scenario: str, rate: float, duration: float,
+                  seed: int) -> tuple:
+    """``scenario``'s trace (the launcher's ``--scenario`` draw: the same
+    component names, so the same arrivals and lengths) under
+    ``SERVE_CLASS``, written as a Mooncake-schema CSV with its
+    ``slo_class`` column. The launcher refuses ``--slo-classes`` beside
+    ``--scenario`` (as the JAX one does), so a phase replays the scenario's
+    trace with ``--trace-csv`` under the class. Returns (path, requests)."""
+    base = get_scenario(scenario)
+    comps = tuple(dataclasses.replace(c, slo=SERVE_CLASS)
+                  for c in base.components)
+    reqs = Scenario(base.name, comps).generate(rate, duration, None,
+                                               seed=seed)
+    path = _dist_dir(phase) / f"{scenario}.csv"
+    save_csv(str(path), reqs)
+    return path, reqs
+
+
+class _Windows:
+    """Counts the calls of the two attention kernels' launchers given the
+    sliding ``window``: eager calls, and calls that a CUDA graph captures
+    (whose replays launch the captured window)."""
+
+    def __init__(self, window: int):
+        self.window = window
+        self.calls = {"chunked_prefill": 0, "paged_attention": 0}
+
+    def _spy(self, name: str, fn):
+        def run(*args, window=None, **kwargs):
+            if window == self.window:
+                self.calls[name] += 1
+            return fn(*args, window=window, **kwargs)
+        return run
+
+    def __enter__(self):
+        self.saved = (chunked_prefill.chunked_prefill_attention,
+                      paged_attention.paged_attention)
+        chunked_prefill.chunked_prefill_attention = self._spy(
+            "chunked_prefill", self.saved[0])
+        paged_attention.paged_attention = self._spy("paged_attention",
+                                                    self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        (chunked_prefill.chunked_prefill_attention,
+         paged_attention.paged_attention) = self.saved
+
+
+def _cache_bytes_per_token(cfg) -> int:
+    """K and V of every layer for one token, in the model's dtype."""
+    return cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim \
+        * torch.empty((), dtype=cfg.dtype).element_size()
+
+
 def phase_serve(card: str, phase: str, arch: str, kernels: dict,
-                main_variants: dict, changes: Optional[dict] = None) -> dict:
+                main_variants: dict, changes: Optional[dict] = None,
+                traffic: Optional[dict] = None) -> dict:
     """``repro_torch.launch.serve`` on full-width ``arch`` (with config
     ``changes``); every kernel's launch count is zeroed just before and
     ``kernels``' read just after (a graph replay adds what its capture
     counted). Each of ``main_variants`` (module name -> its device kernel
-    variants) must have launched, and no other variant of that module."""
+    variants) must have launched, and no other variant of that module.
+    ``traffic`` changes the run's flags (``rate``, ``max_len``,
+    ``max_prompt``, ``max_output``) and its ``scenario`` (replayed by
+    ``_scenario_csv``); with ``past`` (gemma2's window) at least half the
+    finished requests must reach a length past it, and both attention
+    kernels must be given it as their window."""
     # Explicit SLOs: the trace's default limits are 5x the light-load
     # latency under the H100 cost model with its assumed fractions, which
     # this card's host-bound iterations do not meet; with no slack the
@@ -2940,18 +3032,42 @@ def phase_serve(card: str, phase: str, arch: str, kernels: dict,
     # of up to 128 tokens: with graphed steps (about 6 ms a decode) 32
     # tokens left one or two of the 10 arrivals inside another request's
     # decode, so a prefill rode on a decode batch in 1-2 iterations only.
+    traffic = traffic or {}
+    rate, seed, duration = traffic.get("rate", 1.5), 1, 5.0
+    max_len = traffic.get("max_len", MAX_LEN)
+    max_prompt = traffic.get("max_prompt", 512)
+    max_output = traffic.get("max_output", 128)
+    c = SERVE_CLASS
     argv = ["--mode", "real", "--arch", arch, "--size", "full",
-            "--policy", "tropical", "--workers", "2", "--rate", "1.5",
-            "--duration", "5", "--seed", "1", "--max-len", str(MAX_LEN),
-            "--max-prompt", "512", "--max-output", "128",
-            "--slo-classes", "chat:ttft=5,tpot=0.5", "--json"]
+            "--policy", "tropical", "--workers", "2", "--rate", str(rate),
+            "--duration", "5", "--seed", str(seed), "--max-len", str(max_len),
+            "--max-prompt", str(max_prompt), "--max-output", str(max_output),
+            "--slo-classes", f"{c.name}:ttft={c.ttft:g},tpot={c.tpot:g}",
+            "--json"]
+    trace = stated = None
+    if "scenario" in traffic:
+        path, trace = _scenario_csv(phase, traffic["scenario"], rate,
+                                    duration, seed)
+        argv += ["--trace-csv", str(path)]
+        cfg = dataclasses.replace(get_config(arch), **(changes or {}))
+        per_token = _cache_bytes_per_token(cfg)
+        stated = SERVE_SLOTS * per_token * max_len
+        say(phase, scenario=traffic["scenario"], requests=len(trace),
+            prompts_capped=",".join(str(min(r.prompt_len, max_prompt))
+                                    for r in trace),
+            cache_bytes_per_token=per_token,
+            slot_gb=f"{per_token * max_len / 1e9:.3f}",
+            cache_gb_a_worker=f"{stated / 1e9:.3f}",
+            slots_a_worker=SERVE_SLOTS, workers=2)
     for module in (chunked_prefill, paged_attention, wkv6):
         module.launches = 0
         for v in getattr(module, "launches_by_variant", {}):
             module.launches_by_variant[v] = 0
     t0 = time.perf_counter()
     changes = changes or {}
-    with _ConfigChanges(arch, changes):
+    windows = _Windows(traffic["past"]) if "past" in traffic else None
+    with _ConfigChanges(arch, changes), \
+            (windows or contextlib.nullcontext()):
         row, backend = serve.run(argv)
     wall = time.perf_counter() - t0
     graphs = backend.execs.kernels
@@ -2982,7 +3098,11 @@ def phase_serve(card: str, phase: str, arch: str, kernels: dict,
     say(phase, launches=launches, by_variant=variants)
     check(row["n_total"] > 0 and row["n_finished"] == row["n_total"],
           f"{phase}: not every request finished")
-    check(backend.mixed_iterations >= 1, f"{phase}: no mixed iteration")
+    if "scenario" not in traffic:
+        # the mooncake-like traffic rides prefills on decode batches (see
+        # the SLO note above); the long-context phase checks the window,
+        # and its 6k-token prompts at rate 1.0 may find no slack to ride on
+        check(backend.mixed_iterations >= 1, f"{phase}: no mixed iteration")
     check(all(n > 0 for n in launches.values()),
           f"{phase}: a kernel was never launched on the main path {launches}")
     for name, wanted in main_variants.items():
@@ -2995,20 +3115,148 @@ def phase_serve(card: str, phase: str, arch: str, kernels: dict,
               f"main path {variants}")
     for lat in (row["ttft_avg"], row["tpot_avg"]):
         check(math.isfinite(lat) and lat > 0, f"{phase}: bad latency")
+    if "past" in traffic:
+        _check_past(phase, traffic, trace, backend, windows, stated)
     del backend, graphs
     torch.cuda.empty_cache()
     return launches | {f"{name}.{v}": n for name, by in variants.items()
                        for v, n in by.items()}
 
 
+QUICKSTART_ARCHS = (ARCH, GEMMA2, RWKV)
+# the kernels each quickstart must launch (SMOKE configs are f32: the
+# attention kernels' CUDA-core variants; rwkv6 both WKV kernels)
+QUICKSTART_KERNELS = {
+    ARCH: {"chunked_prefill": ("cuda_core",),
+           "paged_attention": ("cuda_core",)},
+    GEMMA2: {"chunked_prefill": ("cuda_core",),
+             "paged_attention": ("cuda_core",)},
+    RWKV: {"wkv6": ("chunk", "decode")},
+}
+
+
+def phase_quickstart() -> None:
+    """The port's quickstart (``repro_torch.examples.quickstart``, the
+    counterpart of examples/quickstart.py) on the card for each of
+    ``QUICKSTART_ARCHS`` at SMOKE size: 2 prompts of 12 tokens prefilled,
+    8 greedy decode steps, 3 AdamW steps. Launch counts are zeroed just
+    before each run and read just after: the kernels of
+    ``QUICKSTART_KERNELS`` and no other variant. Then the same weights
+    (the quickstart's seeded generator) and prompts through the plain
+    versions on the card, fed the quickstart's tokens: every step's logits
+    held to the kernels' (relative L2, ``MODEL_TOL`` f32)."""
+    for arch in QUICKSTART_ARCHS:
+        _zero_counts()
+        out = quickstart.main([arch, "--device", "cuda"])
+        counts = _counts()
+        cfg = configs.get_smoke(arch)
+        api = model_api.build(cfg)
+        params = api.init(torch.Generator(device=DEV).manual_seed(0))
+        inputs, lengths = quickstart.prompt_inputs(
+            cfg, torch.Generator(device=DEV).manual_seed(1))
+        with _PlainKernels():
+            plain, _ = quickstart.generate(api, params, inputs, lengths,
+                                           forced=out["tokens"][:, :-1])
+        rel = max(_rel_l2(g, w) for g, w in zip(out["logits"], plain))
+        say("quickstart", arch=arch, tokens=out["tokens"].tolist(),
+            losses=",".join(f"{x:.4f}" for x in out["losses"]),
+            launches=counts, logits_rel_l2_vs_plain=f"{rel:.3e}",
+            tol=MODEL_TOL[cfg.dtype])
+        for name, wanted in QUICKSTART_KERNELS[arch].items():
+            check(all(counts[name][v] > 0 for v in wanted)
+                  and all(n == 0 for v, n in counts[name].items()
+                          if v not in wanted),
+                  f"quickstart: {arch}: {name} launched {counts[name]}, "
+                  f"want {wanted} only")
+        check(all(torch.isfinite(g).all().item() for g in out["logits"])
+              and all(math.isfinite(x) for x in out["losses"]),
+              f"quickstart: {arch}: non-finite logits or losses")
+        check(rel <= MODEL_TOL[cfg.dtype], f"quickstart: {arch}: logits "
+              f"{rel:.3e} (relative L2) from the plain versions'")
+
+
+def _check_past(phase: str, traffic: dict, trace: list, backend,
+                windows: _Windows, stated: int) -> None:
+    """The serve phase's requests past ``traffic["past"]`` tokens and the
+    windows its attention kernels were given; each worker's cache is the
+    ``stated`` size."""
+    past, execs = traffic["past"], backend.execs.execs.values()
+    reached = [min(r.prompt_len, traffic["max_prompt"])
+               + max(len(e.generated.get(r.rid, ())) for e in execs)
+               for r in trace]
+    beyond = sum(n > past for n in reached)
+    caches = [sum(t.numel() * t.element_size() for t in (e.cache["k"],
+                                                         e.cache["v"]))
+              for e in execs]
+    say(phase, lengths_reached=",".join(map(str, reached)),
+        past_window=f"{beyond}/{len(reached)}", window=past,
+        windowed_calls=windows.calls,
+        cache_gb_by_worker=",".join(f"{b / 1e9:.3f}" for b in caches))
+    check(2 * beyond >= len(reached), f"{phase}: {beyond} of "
+          f"{len(reached)} requests reached a length past {past}")
+    check(all(n > 0 for n in windows.calls.values()),
+          f"{phase}: an attention kernel was never given the window {past}: "
+          f"{windows.calls}")
+    check(all(b == stated for b in caches), f"{phase}: caches of {caches} "
+          f"bytes, {stated} stated")
+
+
 # ---------------------------------------------------------------- training
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_TIMED_FROM = 8, 512, 20, 5
 TRAIN_OPT = optimizer.AdamWConfig(lr=1e-3, warmup_steps=5)
+# a step's measured peak memory against the dry-run's prediction: within
+# 10% of the predicted transient (dryrun_check: or 64 MiB, the larger)
+STEP_MEM_TOL, STEP_MEM_FLOOR = 0.10, 64 * 2**20
+# dryrun_check: the bytes the step itself allocates (peak - start) against
+# the trace's high-water mark, within 1% + 1 MiB (the allocator's 512-byte
+# rounding of a few hundred blocks, an op's own workspace): the start
+# holds the cuBLAS workspace that the absolute check's floor absorbs
+OWN_MEM_TOL, OWN_MEM_FLOOR = 0.01, 2**20
 # the plain attention's ops in a training step: its products (the only
 # batched matrix products of a dense model) and its softmax, forward and
 # backward (the rest of it, the mask and the casts, counts as elementwise)
 ATTENTION_OPS = ("aten::bmm", "aten::_softmax", "aten::_softmax_backward_data")
+
+
+def _train_prediction() -> dict:
+    """The dry-run's record of the train phase's step (full-width qwen2-1.5b,
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ``, its remat policy) traced as rank 0 of a
+    fake group of 1 on a 1 x 1 mesh: meta DTensors, nothing on the card.
+    AdamW's hyperparameters are scalars that change no buffer, FLOP or
+    collective of the trace, so the default config traces the step that
+    ``TRAIN_OPT`` runs."""
+    dryrun.fake_group(1)
+    try:
+        mesh = mesh_launch.make_mesh((1, 1), ("data", "model"), "cuda")
+        rec = dryrun.run_cell(
+            ARCH, "train_check", "1x1", EP_DIR, force=True, write=False,
+            shape=dict(kind="train", seq=TRAIN_SEQ, batch=TRAIN_BATCH),
+            mesh=mesh, cfg=get_config(ARCH))
+    finally:
+        dryrun.release_group()
+    check(rec["status"] == "ok", f"train: the dry-run's trace of the step: "
+          f"{rec.get('error')}")
+    return rec
+
+
+def _check_train_memory(peak: int) -> None:
+    """The phase's measured peak (from its reset before step 0) against the
+    dry-run's predicted peak of the step, within 10% of the predicted
+    transient."""
+    rec = _train_prediction()
+    mem = rec["memory"]
+    want, temps = rec["bytes_per_device_incl_cpu_temps"], \
+        mem["temp_size_in_bytes"]
+    say("train", peak_bytes=peak, predicted_peak_bytes=int(want),
+        predicted_start_bytes=int(sum(mem["arguments"].values())),
+        predicted_temp_bytes=int(temps),
+        peak_minus_predicted_gb=f"{(peak - want) / 1e9:.3f}",
+        share_of_predicted_transient=f"{(peak - want) / temps:.4f}",
+        peak_at=mem["peak_at"], trace_s=rec["lower_s"])
+    check(abs(peak - want) <= STEP_MEM_TOL * temps,
+          f"train: peak {peak} bytes, the dry-run's {want:.0f} (tolerance "
+          f"{STEP_MEM_TOL * temps:.0f})")
 
 
 def _rel_l2(got, want) -> float:
@@ -3105,6 +3353,7 @@ def phase_train(card: str) -> None:
     check(all(math.isfinite(x) for x in losses), "train: non-finite loss")
     check(losses[-1] < losses[0], f"train: the loss did not fall "
           f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    _check_train_memory(peak)
 
     # the same steps under remat "full" (only the blocks' inputs kept)
     full_step = optimizer.make_train_step(model_api.build(
@@ -3960,8 +4209,30 @@ def _dryrun_check_run(rank: int, root: str, name: str) -> None:
             pos = pos + 1
     torch.cuda.synchronize()
     launches = _counts()
+    # the steps' peak memory, after the warm-up above (one-time allocations,
+    # the cuBLAS workspace among them, fall before it): one prefill and one
+    # decode step, each from a peak reset just before it
+    del logits
+    tok, n = place(toks[0].to(DEV), "lengths"), place(pos, "lengths")
+    runs = {"prefill": (lambda p, c, t, n: api.prefill(p, c, t, n, ep=eps[0]),
+                        inputs["tokens"], inputs["lengths"]),
+            "decode": (lambda p, c, t, n: api.decode(p, c, t, n, ep=eps[1]),
+                       tok, n)}
+    step_memory = {}
+    for kind, (fn, *args) in runs.items():
+        gc.collect()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with tp.step_context():
+            out = step(fn, *args)
+        torch.cuda.synchronize()
+        step_memory[kind] = {"start": start,
+                             "peak": torch.cuda.max_memory_allocated()}
+        del out
     torch.save({
         "placed_bytes": placed, "param_bytes": p_bytes, "cache_bytes": c_bytes,
+        "step_memory": step_memory,
         "cost": {k: {"flops": c.result()["flops"],
                      "kernel_op_flops": dict(c.op_flops),
                      "collectives": c.result()["collectives"],
@@ -3999,6 +4270,37 @@ def _predict(name: str) -> dict:
         return out
     finally:
         dryrun.release_group()
+
+
+def _check_step_memory(name: str, rank: int, kind: str, got: dict,
+                       rec: dict) -> None:
+    """One rank's measured step peak (``torch.cuda.max_memory_allocated``
+    from a reset just before the step) against the trace's predicted peak
+    (``bytes_per_device_incl_cpu_temps``: the arguments' bytes plus the
+    high-water mark of the step's buffers), and the bytes the step itself
+    allocated (peak - start) against that high-water mark."""
+    mem = rec["memory"]
+    want, temps = rec["bytes_per_device_incl_cpu_temps"], \
+        mem["temp_size_in_bytes"]
+    tol = max(STEP_MEM_TOL * temps, STEP_MEM_FLOOR)
+    own = mem["step_allocated_peak_bytes"]
+    own_tol = OWN_MEM_TOL * own + OWN_MEM_FLOOR
+    say("dryrun_check", model=name, rank=rank, step=kind,
+        start_bytes=got["start"],
+        predicted_start_bytes=int(sum(mem["arguments"].values())),
+        peak_bytes=got["peak"], predicted_peak_bytes=int(want),
+        measured_transient_bytes=got["peak"] - got["start"],
+        predicted_step_allocated_bytes=int(mem["step_allocated_peak_bytes"]),
+        predicted_temp_bytes=int(temps), tol_bytes=int(tol),
+        own_tol_bytes=int(own_tol), peak_at=mem["peak_at"])
+    check(abs(got["peak"] - want) <= tol,
+          f"dryrun_check: {name} rank {rank} {kind}: step peak "
+          f"{got['peak']} bytes, the trace's {want:.0f} (tolerance "
+          f"{tol:.0f})")
+    check(abs(got["peak"] - got["start"] - own) <= own_tol,
+          f"dryrun_check: {name} rank {rank} {kind}: the step allocated "
+          f"{got['peak'] - got['start']} bytes at its peak, the trace "
+          f"{own:.0f} (tolerance {own_tol:.0f})")
 
 
 def _check_one(name: str) -> None:
@@ -4072,6 +4374,8 @@ def _check_one(name: str) -> None:
                 wire_total=f"{c['collectives']['wire_total']:.6e}",
                 counts=c["collectives"]["counts"], matches_trace=True,
                 kernel_calls=sorted({str(k) for k in c["kernel_calls"]}))
+        for kind, rec in pred.items():
+            _check_step_memory(name, r, kind, out["step_memory"][kind], rec)
         for kname in ("chunked_prefill", "paged_attention"):
             got = out["launches"][kname]
             check(got["tensor_core"] > 0
@@ -4148,7 +4452,14 @@ def serve_table() -> tuple:
         ("serve_gemma2_fp8", GEMMA2, attention, tensor_cores_e4m3, fp8),
         ("serve_moe", ARCTIC, attention, tensor_cores, MOE_CUTS[ARCTIC]),
         ("serve_vlm", PALIGEMMA, attention, tensor_cores),
-        ("serve_zamba2", ZAMBA2, attention, tensor_cores))
+        ("serve_zamba2", ZAMBA2, attention, tensor_cores),
+        # gemma2 past its 4096-token window on the serve path: long-context
+        # traffic into slots of 8192 tokens (26 layers x K and V x 4 KV
+        # heads x 256 x 2 bytes = 106,496 bytes a token, 0.872 GB a slot,
+        # 6.98 GB for a worker's 8 slots)
+        ("serve_gemma2_long", GEMMA2, attention, tensor_cores, None,
+         {"scenario": "longctx", "rate": 1.0, "max_len": 8192,
+          "max_prompt": 6144, "max_output": 128, "past": 4096}))
 
 
 def run_phase(name: str, fn, *args):
@@ -4200,6 +4511,7 @@ def main() -> None:
                 "model_vlm": vlm_launches, "model_whisper": whisper_launches}
     for phase, *args in serve_table():
         launches[phase] = run_phase(phase, phase_serve, card, phase, *args)
+    run_phase("quickstart", phase_quickstart)
     run_phase("train", phase_train, card)
     run_phase("train_families", phase_train_families)
     run_phase("moe_ep", phase_moe_ep)

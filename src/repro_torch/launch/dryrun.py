@@ -28,6 +28,23 @@ XLA reckons them: an argument no op of the step reads is not counted
 (nor aliased when donated: rwkv6's decode never reads ``lengths``,
 whisper's prefill overwrites its cross K/V), and the outputs count the
 table of 8-byte buffer pointers of the step's output tuple, one a leaf.
+``bytes_per_device`` is that steady state, arguments + outputs - aliased.
+
+``bytes_per_device_incl_cpu_temps`` is rank 0's predicted peak during the
+step, the number a card measures: the local bytes of every argument the
+rank holds at the step's start (params, cache or optimizer state, inputs)
+plus the high-water mark of the buffers the step allocates
+(``memory.step_allocated_peak_bytes``, ``launch.memory.LiveBytes``,
+counted in the same trace as the FLOPs; where it fell:
+``memory.peak_at``). ``memory.temp_size_in_bytes`` is the difference, what
+the step needs beyond its steady state. It is the port's own count of live
+buffers, not XLA-CPU's buffer assignment (which JAX's record holds, f32
+upcasts of bf16 dot operands included). ``memory.gathered_cache_bytes``,
+a row-split cache's gathered layer, is one part of the step's high-water
+mark, and so of the temps unless the step's outputs (which
+``bytes_per_device`` counts) come after the peak and outweigh the rest of
+it (a decode's logits beside a short cache).
+
 ``roofline`` is priced on ``perf.cards.H100``. The keys with no
 counterpart are null and listed under ``not_counted``.
 """
@@ -35,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -48,6 +66,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.launch import hloanalysis
+from repro_torch.launch.memory import LiveBytes
 from repro_torch.launch.mesh import make_production_mesh, production_shape
 from repro_torch.models import api as model_api
 from repro_torch.models import sharding
@@ -75,14 +94,8 @@ WHISPER_ENC_DECODE = 1504   # encoder frames backing a decode-cell cross-KV
 NOT_COUNTED = {
     "cost.xla_cpu_flops_raw": "XLA-CPU's cost analysis; there is no XLA",
     "cost.xla_cpu_bytes_raw": "XLA-CPU's cost analysis; there is no XLA",
-    "memory.temp_size_in_bytes": "the trace keeps no buffer assignment; "
-                                 "transient memory is not reckoned (the "
-                                 "largest known transient, a row-split "
-                                 "cache's gathered layer, is "
-                                 "memory.gathered_cache_bytes)",
     "memory.generated_code_size_in_bytes": "nothing is compiled",
     "compile_s": "nothing is compiled (lower_s is the trace)",
-    "bytes_per_device_incl_cpu_temps": "no temp bytes (above)",
 }
 
 
@@ -290,10 +303,27 @@ def _unread(cost, leaves) -> float:
                      if t not in cost.seen))
 
 
-def trace_cell(cfg, shape: dict, mesh, ep_fn=None) -> dict:
+def _materialized(tree, fn):
+    """``tree`` with ``fn`` applied to every leaf (as it is if ``fn`` is
+    None)."""
+    if fn is None or tree is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _materialized(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_materialized(v, fn) for v in tree)
+    return fn(tree)
+
+
+def trace_cell(cfg, shape: dict, mesh, ep_fn=None,
+               materialize=None) -> dict:
     """Trace one cell on ``mesh`` (over a fake group, or a real one with
-    meta shards): the step's StepCost, the memory reckoning and the
-    trace's seconds. ``ep_fn(ep) -> ep`` changes the EPInfo (hillclimb)."""
+    meta shards): the step's StepCost, the memory reckoning (the steady
+    state, and the high-water mark of the buffers the step allocates,
+    ``launch.memory.LiveBytes``) and the trace's seconds. ``ep_fn(ep) ->
+    ep`` changes the EPInfo (hillclimb). ``materialize`` (a meta tensor -> a
+    tensor of its shape and dtype on a device) runs the step on real
+    tensors instead of meta ones, as the tests do on the CPU."""
     kind, seq, batch = shape["kind"], shape["seq"], shape["batch"]
     rules = sharding.make_rules(mesh)
     api = model_api.build(cfg)
@@ -301,20 +331,22 @@ def trace_cell(cfg, shape: dict, mesh, ep_fn=None) -> dict:
     if ep_fn is not None:
         ep = ep_fn(ep)
     t0 = time.time()
+    real = functools.partial(_materialized, fn=materialize)
     params_shape = api.init(MetaGenerator())
     pspecs = sharding.param_specs(cfg, params_shape, rules)
-    params = tp.place(params_shape, pspecs, mesh)
+    params = tp.place(real(params_shape), pspecs, mesh)
     ins, ispecs = input_specs(cfg, "", rules, shape)
-    inputs = tp.place(ins, ispecs, mesh)
+    inputs = tp.place(real(ins), ispecs, mesh)
     step = build_step(cfg, api, kind, mesh, rules, ep)
-    cost = hloanalysis.StepCost(params=params)
+    live = LiveBytes(params=params)
+    cost = hloanalysis.StepCost(params=params, memory=live)
     zero1 = None
     gathered = 0.0
     if kind == "train":
         state_shape = optimizer.init_state(params_shape)
         zero = mesh.size(mesh.mesh_dim_names.index("data"))
         ospecs = optimizer.state_specs(pspecs, params_shape, zero_size=zero)
-        state = tp.place(state_shape, ospecs, mesh)
+        state = tp.place(real(state_shape), ospecs, mesh)
         parts = {"params": _local_bytes(params), "state": _local_bytes(state),
                  "inputs": _local_bytes(inputs)}
         args = sum(parts.values())
@@ -329,7 +361,7 @@ def trace_cell(cfg, shape: dict, mesh, ep_fn=None) -> dict:
         alias = _local_bytes(params) + _local_bytes(state)
     else:
         cache_shape, cspecs = _cache_for(cfg, api, "", rules, shape)
-        cache = tp.place(cache_shape, cspecs, mesh)
+        cache = tp.place(real(cache_shape), cspecs, mesh)
         gathered = _gathered_cache(cache)
         order = list(ins)
         parts = {"params": _local_bytes(params), "cache": _local_bytes(cache),
@@ -351,7 +383,7 @@ def trace_cell(cfg, shape: dict, mesh, ep_fn=None) -> dict:
             "alias": alias - _unread(cost, donated),
             "parts": parts, "n_out": n_out, "lower_s": lower_s,
             "zero1": zero1, "gathered_cache": gathered,
-            "n_devices": int(mesh.size())}
+            "live": live, "n_devices": int(mesh.size())}
 
 
 def _dec_len(cfg, shape):
@@ -367,6 +399,8 @@ def record(cfg, shape: dict, tr: dict) -> dict:
     coll = mc["collectives"]
     dot = {"flops": mc["flops"], "bytes": mc["bytes"]}
     resident = tr["args"] + tr["outs"] - tr["alias"]
+    live = tr["live"]
+    peak = sum(tr["parts"].values()) + live.peak
     mflops = hloanalysis.model_flops(cfg, shape["kind"], shape["batch"],
                                      shape["seq"], _dec_len(cfg, shape))
     rl = hloanalysis.roofline(dot, resident, coll, mflops, tr["n_devices"])
@@ -375,11 +409,13 @@ def record(cfg, shape: dict, tr: dict) -> dict:
         "compile_s": None, "n_devices": tr["n_devices"],
         "memory": {"argument_size_in_bytes": tr["args"],
                    "output_size_in_bytes": tr["outs"],
-                   "temp_size_in_bytes": None,
+                   "temp_size_in_bytes": peak - resident,
                    "alias_size_in_bytes": tr["alias"],
                    "generated_code_size_in_bytes": None,
                    "arguments": tr["parts"], "output_leaves": tr["n_out"],
-                   "gathered_cache_bytes": tr["gathered_cache"]},
+                   "gathered_cache_bytes": tr["gathered_cache"],
+                   "step_allocated_peak_bytes": live.peak,
+                   "peak_at": live.peak_at},
         "cost": {"xla_cpu_flops_raw": None, "xla_cpu_bytes_raw": None,
                  "dot_flops": dot["flops"], "dot_bytes": dot["bytes"],
                  "n_corrected_loops": 0,
@@ -391,7 +427,7 @@ def record(cfg, shape: dict, tr: dict) -> dict:
         "model_flops_total": mflops,
         "roofline": rl.row(),
         "bytes_per_device": float(resident),
-        "bytes_per_device_incl_cpu_temps": None,
+        "bytes_per_device_incl_cpu_temps": peak,
         "not_counted": dict(NOT_COUNTED),
     }
 
@@ -429,6 +465,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, outdir: Path,
               f"dom={rec['roofline']['dominant']} "
               f"rf={rec['roofline']['roofline_fraction']:.3f} "
               f"mem/dev={rec['bytes_per_device'] / 1e9:.2f}GB "
+              f"peak/dev="
+              f"{rec['bytes_per_device_incl_cpu_temps'] / 1e9:.2f}GB "
               f"gathered_kv/layer="
               f"{rec['memory']['gathered_cache_bytes'] / 1e9:.3f}GB",
               flush=True)

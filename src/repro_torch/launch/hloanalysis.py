@@ -225,10 +225,13 @@ class StepCost(LocalOps):
     ``params`` (a tree of tensors or DTensors, optional): collectives whose
     input is one of these tensors' data (their local shards, or a view or
     copy of one) are also counted in ``param_counts`` / ``param_bytes``,
-    by kind: a weight gathered whole shows there."""
+    by kind: a weight gathered whole shows there. ``memory`` (a
+    ``launch.memory.LiveBytes``, optional) is handed every local op, to
+    count the rank's live bytes."""
 
-    def __init__(self, params=None):
+    def __init__(self, params=None, memory=None):
         super().__init__()
+        self.memory = memory
         self.flops = 0.0
         self.bytes = 0.0
         self.op_flops = {}       # the kernel ops' own counts, by op name
@@ -282,6 +285,8 @@ class StepCost(LocalOps):
         out = func(*args, **kwargs)
         if _is_fake(args):
             return out
+        if self.memory is not None:
+            self.memory.op(func, args, kwargs, out)
         for t in _tensors(list(args)) + _tensors(list(kwargs.values())):
             self.seen[t] = True
         if func in _DOTS:

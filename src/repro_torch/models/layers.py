@@ -597,15 +597,20 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _soft_cap(logits, cfg.final_softcap)
 
 
+def token_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token cross-entropy (B, S) of logits (B, S, V) against labels
+    (B, S), on plain tensors: ``logsumexp - logits[label]``."""
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - logits.gather(-1, labels.long()[..., None])[..., 0]
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy of logits (B, S, V) f32 against labels (B, S):
     ``logsumexp - logits[label]``, the JAX ``softmax_xent``'s function
     without its (B, S, V) one-hot."""
     if tp.is_dt(logits):
         return tp.xent(logits, labels).mean()
-    lse = torch.logsumexp(logits, dim=-1)
-    true = logits.gather(-1, labels.long()[..., None])[..., 0]
-    return (lse - true).mean()
+    return token_xent(logits, labels).mean()
 
 
 def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -643,7 +643,13 @@ def xent(logits, labels):
     """Per-token cross-entropy (B, S) f32 of logits (B, S, V) against
     labels (B, S): ``logsumexp - logits[label]``. A vocabulary split over
     mesh dims is reduced over them (the max, then the sum of exponents and
-    the label's logit); the result takes the batch split."""
+    the label's logit); the result takes the batch split. A vocabulary
+    whole on each rank (not split, or split over mesh dims of size 1)
+    takes the plain path's ops (``layers.token_xent``), so that what
+    autograd saves for the backward is what the single-device step saves:
+    the max / exp-sum form holds one (B, S, V) f32 buffer less there, and
+    the dry-run's memory count of a step on one card would miss it."""
+    from repro_torch.models import layers as L
     labels = rows(labels, logits)
     mesh = logits.device_mesh
     vdims = _mesh_dims(logits.placements, 2)
@@ -653,6 +659,8 @@ def xent(logits, labels):
     lo = _coord(mesh, vdims) * v_loc
 
     def body(lg, lab):
+        if v_loc == logits.shape[2]:
+            return L.token_xent(lg, lab)
         m = lg.detach().amax(dim=-1)
         for d in vdims:
             m = _wait(funcol.all_reduce(m, "max", (mesh, d)))

@@ -23,10 +23,13 @@ from repro_torch.train import optimizer as topt
 
 MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
 # arch -> config changes; "gqa": qwen2 with 8 query heads over 2 KV heads,
-# so that on 1 x 4 the query heads split and the KV heads do not
+# so that on 1 x 4 the query heads split and the KV heads do not;
+# "whole_vocab": qwen2 with a vocabulary that neither model axis divides,
+# so that it stays whole on each rank (``tp.xent``'s plain-ops branch)
 ARCHS = {
     "qwen2-1.5b": {},
     "gqa": {"num_heads": 8, "num_kv_heads": 2},
+    "whole_vocab": {"vocab_size": 513},
     "gemma2-2b": {},
     "arctic-480b": {"expert_pad_to": 4},
     "rwkv6-7b": {},
@@ -37,9 +40,12 @@ ARCHS = {
 ROWS, PROMPT, MAX_LEN, ENC_LEN, STEPS = 4, 8, 16, 16, 4
 
 
+# the variants above and the SMOKE config each changes
+BASE = {"gqa": "qwen2-1.5b", "whole_vocab": "qwen2-1.5b"}
+
+
 def config(arch: str):
-    base = "qwen2-1.5b" if arch == "gqa" else arch
-    return dataclasses.replace(get_smoke(base), **ARCHS[arch])
+    return dataclasses.replace(get_smoke(BASE.get(arch, arch)), **ARCHS[arch])
 
 
 def inputs(cfg) -> dict:

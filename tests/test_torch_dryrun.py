@@ -15,7 +15,9 @@
   ``bytes_per_device`` and ``model_flops_total`` are equal; dot FLOPs and
   collectives are equal or differ as
   ``DOT_DIFFS`` / ``COLL_DIFFS`` name, each with its cause and its ratio
-  held; the EP all-to-all volumes of the serving cells are equal.
+  held; the EP all-to-all volumes of the serving cells are equal. The
+  port's ``temp_size_in_bytes`` (its own count of live buffers) stands
+  beside XLA's, each ratio held in ``TEMP_RATIOS`` with its cause.
 * One full-width cell (qwen2-1.5b decode_32k on the 16 x 16 mesh) ends ok
   and its ``bytes_per_device`` is the local shard bytes the specs give
   (and the output tuple's pointers);
@@ -235,6 +237,42 @@ COLL_DIFFS = {
         "collective-permute": (4, 0, 19328, 0, "zero1")},
 }
 
+# the port's transient bytes (memory.temp_size_in_bytes, its own count of
+# live buffers, launch/memory.py) beside XLA's buffer assignment's
+TEMP_CAUSES = {
+    "kernel": (
+        "the port's kernel ops (attention, WKV6) allocate their outputs "
+        "only, and a decode's peak is the gathered layer of a row-split "
+        "cache (or rwkv6's new WKV state), where XLA's jnp forms hold "
+        "their intermediates (attention scores and weights, the WKV outer "
+        "products)"),
+    "eager": (
+        "PyTorch runs op by op: each elementwise op's output (rope tables, "
+        "norms, residual adds, gates, the MoE dispatch and the SSD's chunk "
+        "products, whisper's sinusoids and its cross K/V stacked from "
+        "per-layer pieces) is a buffer of its own, alive until Python "
+        "drops it, where XLA fuses elementwise chains into the loops that "
+        "consume them and reuses buffers by liveness"),
+    "remat": (
+        "the port's \"dots\" remat keeps the attention's batched products "
+        "for the backward too (scores and weighted sums), which JAX's "
+        "dots_with_no_batch_dims_saveable recomputes"),
+}
+# cell -> (port temps / JAX temp_size_in_bytes, causes)
+TEMP_RATIOS = {
+    "qwen2-1.5b|t_train": (1.2912256192089988, ("remat", "eager")),
+    "qwen2-1.5b|t_prefill": (1.1663694189974738, ("eager",)),
+    "qwen2-1.5b|t_decode": (0.6117508930578801, ("kernel",)),
+    "gemma2-2b|t_decode": (0.9153204398938187, ("kernel",)),
+    "arctic-480b|t_prefill": (1.9213638856363664, ("eager",)),
+    "arctic-480b|t_decode": (0.8688937686741783, ("kernel",)),
+    "arctic-480b|t_train": (1.1715183903251143, ("remat", "eager")),
+    "rwkv6-7b|t_decode": (0.5191995233968805, ("kernel",)),
+    "zamba2-2.7b|t_prefill": (2.58793897882939, ("eager",)),
+    "whisper-medium|t_prefill": (5.013265528616545, ("eager",)),
+    "paligemma-3b|t_train": (1.2375185187124063, ("remat", "eager")),
+}
+
 JAX_SCRIPT = textwrap.dedent("""
     import json, os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
@@ -291,6 +329,7 @@ JAX_SCRIPT = textwrap.dedent("""
             "args": mem.argument_size_in_bytes,
             "outs": mem.output_size_in_bytes,
             "alias": mem.alias_size_in_bytes,
+            "temps": mem.temp_size_in_bytes,
             "model_flops_total": hloanalysis.model_flops(cfg, kind, batch,
                                                          seq, dec),
             "dot_flops": mc["flops"],
@@ -443,6 +482,22 @@ def test_collectives_equal_jax_or_named(traced, cell):
         assert cause in CAUSES
         assert (jc, pc, jb, pb) == tuple(numbers), kind
     assert sum(got["param_collectives"].values()) == 0
+
+
+@pytest.mark.parametrize("cell", CELL_KEYS)
+def test_temps_beside_jax_with_their_causes(traced, cell):
+    """The port's ``temp_size_in_bytes`` is its own count of live buffers,
+    not XLA's buffer assignment: each cell's ratio to JAX's is held, with
+    its cause. The count itself is held by hand-worked cells in
+    ``tests/test_torch_dryrun_memory.py``."""
+    jax_out, port = traced
+    got = port["cells"][cell]
+    ratio, causes = TEMP_RATIOS[cell]
+    assert all(c in TEMP_CAUSES for c in causes)
+    assert got["memory"]["temp_size_in_bytes"] / jax_out[cell]["temps"] \
+        == pytest.approx(ratio, rel=1e-9)
+    assert got["bytes_per_device_incl_cpu_temps"] == got["bytes_per_device"] \
+        + got["memory"]["temp_size_in_bytes"]
 
 
 @pytest.mark.parametrize("cell", ["arctic-480b|t_prefill",

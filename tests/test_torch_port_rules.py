@@ -60,6 +60,19 @@ def test_carried_over_module_equals_its_original(rel):
         f"{rel} drifted from src/repro/{rel}"
 
 
+# the examples with no JAX compute, carried over the same way from
+# examples/ (the top-level folder, beside src/)
+CARRIED_EXAMPLES = ["serve_cluster.py", "slack_multiplexing.py"]
+
+
+@pytest.mark.parametrize("name", CARRIED_EXAMPLES)
+def test_carried_over_example_equals_its_original(name):
+    want = (ROOT / "examples" / name).read_text().replace("repro.",
+                                                          "repro_torch.")
+    assert (PORT / "examples" / name).read_text() == want, \
+        f"examples/{name} drifted from its original"
+
+
 def test_perf_init_drops_only_calibrate():
     """The first reviewed delta: ``perf/__init__.py`` is the JAX package's
     (calibrate included, since the port has its own ``perf/calibrate.py``)

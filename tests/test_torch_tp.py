@@ -51,8 +51,8 @@ GRAD_FLOOR = 1e-3
 
 
 def _jax_cfg(arch):
-    base = "qwen2-1.5b" if arch == "gqa" else arch
-    return dataclasses.replace(jax_smoke(base), **R.ARCHS[arch])
+    return dataclasses.replace(jax_smoke(R.BASE.get(arch, arch)),
+                               **R.ARCHS[arch])
 
 
 def _jax_run(arch, params, batch):
@@ -215,3 +215,18 @@ def test_zero1_step_matches_single_process(run, arch, mesh):
         assert params.keys() == want.keys()
         for k, w in want.items():
             assert float((params[k] - w).abs().max()) <= bound, k
+
+
+@pytest.mark.parametrize("mesh", list(R.MESHES))
+def test_whole_vocab_case_keeps_its_logits_whole(mesh):
+    """``whole_vocab``'s logits are not split over the model axis on either
+    mesh, so its loss and gradients above hold ``tp.xent``'s plain-ops
+    branch to the single-process port; qwen2's are split (the other
+    branch)."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import sharding as TS
+    rules = TS.make_rules(AbstractMesh(R.MESHES[mesh], ("data", "model")))
+    split = lambda arch: "model" in TS.io_specs(  # noqa: E731
+        R.config(arch), rules, R.ROWS)["logits"]
+    assert not split("whole_vocab")
+    assert split("qwen2-1.5b")
