@@ -33,6 +33,15 @@ adds:
   the caps on each request's prompt and output (the JAX real mode's fixed
   128 / 48 / 16), applied to CSV traces too.
 
+``--torch-trace PATH`` (either mode) runs the serving loop under
+``torch.profiler`` and writes its Chrome trace to PATH: the port's spans
+(``repro_torch.tracing``: the scheduler's run, events and decisions, the
+executor's iterations with their worker and request ids, each iteration's
+host preparation, upload, graph replays, device-to-host copy and
+write-back) beside the kernels they launched, on one clock. It is the way
+to read the spans; chrome://tracing or Perfetto opens the file. The
+printed row is the same with or without it.
+
 On a CUDA device each worker is priced as one ``perf.cards.H100`` (the
 card's data-sheet peaks, the assumed efficiency fractions) whose
 ``hbm_bytes`` is the card's own memory, so admission, slack-bounded
@@ -217,6 +226,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile", action="store_true",
                     help="run under cProfile; print the top-25 "
                          "cumulative-time entries to stderr")
+    ap.add_argument("--torch-trace", default=None, metavar="PATH",
+                    help="run the serving loop under torch.profiler and "
+                         "write its Chrome trace (the port's spans beside "
+                         "the kernels) to PATH")
     ap.add_argument("--device", default="cuda",
                     help="real mode: torch device of the model (default "
                          "cuda); on a CUDA device each worker is priced as "
@@ -232,6 +245,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-output", type=int, default=16,
                     help="real mode: cap on each request's output length")
     return ap
+
+
+def _run_sim(sim, args):
+    """``sim.run`` over the horizon; with ``--torch-trace``, under
+    ``torch.profiler`` (the card's activity too in real mode on a CUDA
+    device), its Chrome trace written to the path given. Shapes are
+    recorded, so the spans keep their ids."""
+    until = args.duration * 10
+    if args.torch_trace is None:
+        return sim.run(until=until)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if args.mode == "real" and torch.device(args.device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, record_shapes=True) as prof:
+        m = sim.run(until=until)
+    prof.export_chrome_trace(args.torch_trace)
+    return m
 
 
 def run(argv: Optional[Sequence[str]] = None):
@@ -356,7 +388,7 @@ def run(argv: Optional[Sequence[str]] = None):
         pr = cProfile.Profile()
         pr.enable()
         try:
-            m = sim.run(until=args.duration * 10)
+            m = _run_sim(sim, args)
         finally:
             pr.disable()
             stats = pstats.Stats(pr, stream=_sys.stderr)
@@ -365,7 +397,7 @@ def run(argv: Optional[Sequence[str]] = None):
                   file=_sys.stderr)
             stats.print_stats(25)
     else:
-        m = sim.run(until=args.duration * 10)
+        m = _run_sim(sim, args)
 
     # label the workload that actually ran, as the JAX launcher does
     if args.trace_csv:

@@ -34,6 +34,7 @@ from repro_torch.sched.backend import CostModelBackend, ExecutionBackend, \
 from repro_torch.sched.rebalance import RoleRebalancer
 from repro_torch.serving.engine import IterationPlan, Worker, _slack_key
 from repro_torch.serving.transfer import LinkSpec, host_node
+from repro_torch.tracing import span
 
 
 class ClusterScheduler:
@@ -86,7 +87,9 @@ class ClusterScheduler:
         h = self._handlers.get(kind)
         if h is None:
             h = self._handlers[kind] = getattr(self, f"_on_{kind}")
-        h(now, payload)
+        with span("repro_torch.sched.event", kind=kind,
+                  rid=payload.rid if kind == "arrival" else None):
+            h(now, payload)
 
     def handle_batch(self, now: float, events) -> None:
         """Process a same-timestamp run of ``(time, seq, kind, payload)``
@@ -102,10 +105,15 @@ class ClusterScheduler:
             h = handlers.get(kind)
             if h is None:
                 h = handlers[kind] = getattr(self, f"_on_{kind}")
-            h(now, events[i][3])
+            with span("repro_torch.sched.event", kind=kind,
+                      rid=events[i][3].rid if kind == "arrival" else None):
+                h(now, events[i][3])
             j = i + 1
             while j < m and events[j][2] == kind:
-                h(now, events[j][3])
+                with span("repro_torch.sched.event", kind=kind,
+                          rid=events[j][3].rid if kind == "arrival"
+                          else None):
+                    h(now, events[j][3])
                 j += 1
             i = j
 
@@ -173,9 +181,10 @@ class ClusterScheduler:
         w = self.workers[wid]
         if self._busy[wid] or not w.view.alive:
             return
-        head = w.peek_prefill(now)
-        rule = self.policy.batch_rule(w.view, now, head)
-        plan = w.compose_iteration(rule, now)
+        with span("repro_torch.sched.decide", wid=wid):
+            head = w.peek_prefill(now)
+            rule = self.policy.batch_rule(w.view, now, head)
+            plan = w.compose_iteration(rule, now)
         if plan.empty:
             return
         if self.decisions is not None:
@@ -184,7 +193,10 @@ class ClusterScheduler:
                 tuple(r.rid for r in plan.decode_reqs),
                 tuple((r.rid, t) for r, t in plan.prefill_parts)))
         try:
-            dur = self.backend.run_iteration(w, plan)
+            # the backend call less the executor's own span is the
+            # backend's wrapping, none of the scheduler's work
+            with span("repro_torch.sched.backend", wid=wid):
+                dur = self.backend.run_iteration(w, plan)
         except SlotExhausted as exc:
             # the backend refused the plan's NEW prefill (per-worker slot
             # capacity, a real-hardware constraint the view's HBM watermark

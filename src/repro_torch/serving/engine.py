@@ -205,7 +205,6 @@ class Worker:
         # metrics
         self.blocked_time: dict[int, float] = {}
         self.queue_times: dict[int, float] = {}
-        self.busy_time = 0.0
         # wall seconds this worker's decode batches spent blocked behind
         # co-batched prefill work, charged ONCE per mixed iteration (the
         # per-request ``blocked_time`` dict intentionally charges the same
@@ -346,7 +345,6 @@ class Worker:
                            duration: float) -> list[Request]:
         """Apply effects at iteration end. Returns requests whose prefill
         finished this iteration (for decode dispatch)."""
-        self.busy_time += duration
         finished_prefills: list[Request] = []
         # decode side. ``interference`` is the wall time this iteration ran
         # beyond a pure decode pass (piggybacked prefill compute + the §IV

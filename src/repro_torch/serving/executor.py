@@ -66,8 +66,11 @@ from repro_torch.models import api as model_api
 from repro_torch.models.transformer import uses_ring
 from repro_torch.sched.backend import SlotExhausted
 from repro_torch.serving.engine import IterationPlan, Worker
+from repro_torch.tracing import span
 
 _BUCKET_FLOOR = 32
+_REPLAY = {"prefill": "repro_torch.executor.replay.prefill",
+           "decode": "repro_torch.executor.replay.decode"}
 
 
 def _bucket_grid(max_len: int) -> tuple[int, ...]:
@@ -314,15 +317,16 @@ class ExecutorKernels:
         scratch: a graph's output in the pool could be overwritten before
         it is read. The eager run and the replays write the same K/V rows,
         so a capture at first use changes nothing a step would not."""
-        static = flat.clone()
-        out = self._eager(params, cache, key, static)
-        t0 = time.perf_counter()
-        tally = LaunchTally()
-        replay, _ = tally.record(lambda: capture_cuda_graph(
-            lambda: out.copy_(self._eager(params, cache, key, static)),
-            self._pool))
-        _sync(self.device)
-        self.capture_seconds += time.perf_counter() - t0
+        with span("repro_torch.executor.capture", key=key):
+            static = flat.clone()
+            out = self._eager(params, cache, key, static)
+            t0 = time.perf_counter()
+            tally = LaunchTally()
+            replay, _ = tally.record(lambda: capture_cuda_graph(
+                lambda: out.copy_(self._eager(params, cache, key, static)),
+                self._pool))
+            _sync(self.device)
+            self.capture_seconds += time.perf_counter() - t0
         if key[0] == "prefill":
             self.prefill_traces += 1
         else:
@@ -521,12 +525,38 @@ class RealExecutor:
         _sync(self.device)
 
     def _run_plan_fast(self, plan: IterationPlan) -> None:
+        with span("repro_torch.executor.prepare", wid=self.wid):
+            calls, pending = self._prepare(plan)
+        if not calls:
+            return
+        arrays = [a for _, arrs in calls for a in arrs]
+        with span("repro_torch.executor.upload",
+                  bytes=lambda: sum(a.nbytes for a in arrays)):
+            flat = _upload(arrays, self.device)
+        tok_parts, off = [], 0
+        for key, arrs in calls:
+            n = sum(a.size for a in arrs)
+            with span(_REPLAY[key[0]], key=key):
+                tok_parts.append(self.kernels.step(self.params, self.cache,
+                                                   key, flat[off:off + n]))
+            off += n
+        toks = torch.cat(tok_parts)
+        # exactly one device->host transfer per iteration
+        with span("repro_torch.executor.to_host"):
+            host = _to_host(toks)
+        with span("repro_torch.executor.scatter"):
+            self._scatter(pending, host)
+
+    def _prepare(self, plan: IterationPlan) -> tuple[list, list]:
+        """Every host input of the iteration, before its one upload: the
+        steps' ``(key, [int32 inputs])`` and, in the same order, what each
+        step's sampled tokens go to (``("prefill", finals)`` or
+        ``("decode", pairs)``)."""
         groups: dict[int, list] = {}
         for req, take in plan.prefill_parts:
             bucket = self.kernels.bucket_for(take)
             groups.setdefault(bucket, []).append((req, take))
-        # host side first: every input of the iteration, then one upload
-        calls = []          # (prefill_fn | decode_fn, [int32 inputs])
+        calls = []          # (step key, [int32 inputs])
         pending = []        # ("prefill", finals) | ("decode", pairs)
         for bucket in sorted(groups):
             parts = groups[bucket]
@@ -567,17 +597,11 @@ class RealExecutor:
                 tokens[s] = self.generated[r.rid][-1]
             calls.append((("decode",), [tokens, np.array(self.lengths)]))
             pending.append(("decode", dpairs))
-        if not calls:
-            return
-        flat = _upload([a for _, arrs in calls for a in arrs], self.device)
-        tok_parts, off = [], 0
-        for key, arrs in calls:
-            n = sum(a.size for a in arrs)
-            tok_parts.append(self.kernels.step(self.params, self.cache, key,
-                                               flat[off:off + n]))
-            off += n
-        # exactly one device->host transfer per iteration
-        host = _to_host(torch.cat(tok_parts))
+        return calls, pending
+
+    def _scatter(self, pending: list, host: np.ndarray) -> None:
+        """The sampled tokens into ``generated``, and each decoded slot's
+        length up by one."""
         off = 0
         for kind, data in pending:
             if kind == "prefill":
@@ -590,6 +614,7 @@ class RealExecutor:
                     self.generated[r.rid].append(int(host[off + s]))
                     self.lengths[s] += 1
                 off += self.max_slots
+
 
 class ClusterRealExecutors:
     """Per-worker RealExecutor registry.
@@ -643,27 +668,30 @@ class ClusterRealExecutors:
         """Move the request across workers: the fast path copies the KV
         slot device-to-device; the scalar reference and stateful families
         re-derive it by replaying prefill of prompt and output so far."""
-        se, de = self.execs[src], self.execs[dst]
-        de.prompts[req.rid] = se.prompts[req.rid]
-        de.generated[req.rid] = list(se.generated[req.rid])
-        slot = de._slot(req.rid)      # SlotExhausted surfaces to scheduler
-        sslot = se.slot_of.get(req.rid)
-        if de.fast and sslot is not None and se.fast:
-            de.cache = de.kernels.copy_fn(de.cache, se.cache, slot, sslot)
-            de.lengths[slot] = se.lengths[sslot]
+        with span("repro_torch.executor.migrate", rid=req.rid, src=src,
+                  dst=dst):
+            se, de = self.execs[src], self.execs[dst]
+            de.prompts[req.rid] = se.prompts[req.rid]
+            de.generated[req.rid] = list(se.generated[req.rid])
+            slot = de._slot(req.rid)    # SlotExhausted reaches the scheduler
+            sslot = se.slot_of.get(req.rid)
+            if de.fast and sslot is not None and se.fast:
+                de.cache = de.kernels.copy_fn(de.cache, se.cache, slot,
+                                              sslot)
+                de.lengths[slot] = se.lengths[sslot]
+                se.release(req.rid)
+                return
+            # replay KV on the destination (simulating the transfer)
+            full = np.concatenate([
+                de.prompts[req.rid],
+                np.asarray(de.generated[req.rid][:-1], np.int32)]) \
+                if len(de.generated[req.rid]) > 1 else de.prompts[req.rid]
+            view = de._fresh_view()
+            de.api.prefill(de.params, view, de._tensor(full[None, :]),
+                           de._tensor(np.asarray([len(full)])))
+            de._cache_write(slot, view)
+            de.lengths[slot] = len(full)
             se.release(req.rid)
-            return
-        # replay KV on the destination (simulating the transfer)
-        full = np.concatenate([
-            de.prompts[req.rid],
-            np.asarray(de.generated[req.rid][:-1], np.int32)]) \
-            if len(de.generated[req.rid]) > 1 else de.prompts[req.rid]
-        view = de._fresh_view()
-        de.api.prefill(de.params, view, de._tensor(full[None, :]),
-                       de._tensor(np.asarray([len(full)])))
-        de._cache_write(slot, view)
-        de.lengths[slot] = len(full)
-        se.release(req.rid)
 
 
 def _warmup_stateful(api, params, max_len: int, device) -> None:
@@ -689,7 +717,10 @@ class RealTorchBackend:
     runs; the scheduler turns it into a dispatch refusal. ``iterations``
     and ``mixed_iterations`` count the plans run and those that carried
     both prefill parts and decode requests; ``busy_seconds`` sums their
-    measured durations.
+    measured durations. ``prefill_tokens`` counts the prompt tokens the
+    plans prefilled (padding left out), and ``ridden_prefill_tokens`` those
+    of them that rode on an iteration with decode requests: Tropical's
+    multiplexing at work.
     """
 
     def __init__(self, execs: ClusterRealExecutors, clock: str = "wall"):
@@ -700,15 +731,26 @@ class RealTorchBackend:
         self.iterations = 0
         self.mixed_iterations = 0
         self.busy_seconds = 0.0
+        self.prefill_tokens = 0
+        self.ridden_prefill_tokens = 0
 
     def run_iteration(self, worker: Worker, plan: IterationPlan) -> float:
         e = self.execs.execs[worker.wid]
-        t0 = time.perf_counter()
-        e.run_plan(plan)
-        measured = time.perf_counter() - t0
+        with span("repro_torch.executor.iteration", wid=worker.wid,
+                  it=self.iterations,
+                  decode=lambda: [r.rid for r in plan.decode_reqs],
+                  prefill=lambda: [f"{r.rid}:{take}"
+                                   for r, take in plan.prefill_parts]):
+            t0 = time.perf_counter()
+            e.run_plan(plan)
+            measured = time.perf_counter() - t0
         self.iterations += 1
         self.busy_seconds += measured
-        self.mixed_iterations += bool(plan.prefill_parts and plan.decode_reqs)
+        mixed = bool(plan.prefill_parts and plan.decode_reqs)
+        self.mixed_iterations += mixed
+        tokens = sum(take for _, take in plan.prefill_parts)
+        self.prefill_tokens += tokens
+        self.ridden_prefill_tokens += tokens if mixed else 0
         return measured if self.clock == "wall" else worker.plan_duration(plan)
 
     def on_finish(self, req) -> None:

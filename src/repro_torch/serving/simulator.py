@@ -26,6 +26,7 @@ from repro_torch.sched.backend import (CallableBackend, ExecutionBackend,
 from repro_torch.sched.core import ClusterScheduler
 from repro_torch.sched.rebalance import RebalanceConfig, RoleRebalancer
 from repro_torch.serving.engine import Worker
+from repro_torch.tracing import span
 
 
 # heap entries are plain tuples ``(time, seq, kind, payload)`` — the seq
@@ -151,31 +152,32 @@ class Simulator:
         handle_batch = self.sched.handle_batch
         max_t = self.max_sim_time
         batch: list[tuple] = []
-        while heap:
-            t = heap[0][0]
-            if t > max_t:
-                break
-            self.now = t
-            batch.clear()
-            while heap and heap[0][0] == t:
-                batch.append(pop(heap))
-            i, m = 0, len(batch)
-            while i < m:
-                if batch[i][2] == "replay_next":
-                    # driver-level streaming arrival: hand it to the
-                    # scheduler, then pull the next from the replay
-                    # iterator (a same-t successor re-drains next round)
-                    self.sched.handle("arrival", t, batch[i][3])
-                    nxt = self._replay.next_arrival()
-                    if nxt is not None:
-                        self.push("replay_next", nxt[0], nxt[1])
-                    i += 1
-                    continue
-                j = i + 1
-                while j < m and batch[j][2] != "replay_next":
-                    j += 1
-                handle_batch(t, batch[i:j])
-                i = j
+        with span("repro_torch.sched.run", until=max_t):
+            while heap:
+                t = heap[0][0]
+                if t > max_t:
+                    break
+                self.now = t
+                batch.clear()
+                while heap and heap[0][0] == t:
+                    batch.append(pop(heap))
+                i, m = 0, len(batch)
+                while i < m:
+                    if batch[i][2] == "replay_next":
+                        # driver-level streaming arrival: hand it to the
+                        # scheduler, then pull the next from the replay
+                        # iterator (a same-t successor re-drains next round)
+                        self.sched.handle("arrival", t, batch[i][3])
+                        nxt = self._replay.next_arrival()
+                        if nxt is not None:
+                            self.push("replay_next", nxt[0], nxt[1])
+                        i += 1
+                        continue
+                    j = i + 1
+                    while j < m and batch[j][2] != "replay_next":
+                        j += 1
+                    handle_batch(t, batch[i:j])
+                    i = j
         return self.metrics()
 
     def metrics(self) -> ServeMetrics:

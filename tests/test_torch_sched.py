@@ -2,7 +2,8 @@
 RealTorchBackend under the cost-model clock makes exactly the decisions of
 the JAX package's pure simulator (mirroring tests/test_sched_core.py's
 backend parity), dense and rwkv6, and the port's serve CLI finishes every
-request with the JAX real mode's JSON keys."""
+request with the JAX real mode's JSON keys, and with ``--torch-trace``
+writes the port's spans to a Chrome trace and prints the same row."""
 import copy
 import json
 
@@ -104,6 +105,27 @@ def test_serve_real_mode_rwkv6_finishes_with_the_jax_json_keys(capsys,
                                                                monkeypatch):
     row = _serve_matches_jax_json_keys(capsys, monkeypatch, RWKV)
     assert row["arch"] == "rwkv6-smoke"
+
+
+def test_serve_real_mode_torch_trace_writes_the_spans(capsys, monkeypatch,
+                                                     tmp_path):
+    as_backend = ClusterRealExecutors.as_backend
+    monkeypatch.setattr(ClusterRealExecutors, "as_backend",
+                        lambda self, clock="wall": as_backend(self, "model"))
+    argv = ["--mode", "real", "--arch", "qwen2-1.5b", "--rate", "2",
+            "--duration", "4", "--workers", "2", "--seed", "1", "--json",
+            "--device", "cpu"]
+    serve.main(argv)
+    plain = json.loads(capsys.readouterr().out)
+    path = tmp_path / "serve.json"
+    serve.main(argv + ["--torch-trace", str(path)])
+    assert json.loads(capsys.readouterr().out) == plain
+    events = json.loads(path.read_text())["traceEvents"]
+    iters = [e for e in events
+             if e.get("name") == "repro_torch.executor.iteration"]
+    assert iters and {"wid", "it"} <= set(iters[0]["args"])
+    runs = [e for e in events if e.get("name") == "repro_torch.sched.run"]
+    assert [e["args"]["until"] for e in runs] == ["40.0"]
 
 
 def test_serve_refuses_cuda_without_a_card(monkeypatch):
