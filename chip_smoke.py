@@ -47,10 +47,18 @@ Phases (one line each, a non-zero exit on any failure):
             so no host time is timed), the timed attention shapes again
             with e4m3 K/V (SDPA over bf16 copies, the widening timed apart),
             and arctic's and paligemma's decode and paligemma's prefill,
-            zamba2's prefill and decode at D = 80 and whisper's decode
+            zamba2's prefill and decode at D = 80 and whisper's decode;
+            last the fused pointwise passes (add_rms_norm with and without
+            a residual, rope_cache_write into a bf16 and an e4m3 cache,
+            gated_act with SiLU and GELU) at deepseek-7b's widths, a decode
+            step's 16 rows and a prefill step's 16 x 512, held to
+            kernels.ref (the norm within one unit in the last place, the
+            rest bit for bit) and timed against it; rope_cache_write also
+            at the other families' heads (biases, D = 80, 256, 64)
   model     full-width qwen2-1.5b (random weights from a seed): prefill_chunk
             then decode steps through the kernels and through the plain
-            attention, logits compared (stated tolerance below)
+            attention and pointwise ops, logits compared (stated tolerance
+            below)
   model_gemma2  the same for full-width gemma2-2b: one slot of a 4352-token
             cache prefilled to 4200 tokens in chunks, then decode steps
             at positions past 4096, so the local layers' window masks
@@ -139,7 +147,9 @@ Phases (one line each, a non-zero exit on any failure):
             profile phase's three iterations under H100's assumed and the
             measured fractions, beside the profiled wall and device time
   serve     the user entry point, repro_torch.launch.serve, on full-width
-            qwen2-1.5b under the tropical policy (the dense main path)
+            qwen2-1.5b under the tropical policy (the dense main path);
+            each serve phase of an RMSNorm family checks the fused
+            passes' launches: whole forwards, in the config's variants
   serve_rwkv  the same on full-width rwkv6-7b (the rwkv main path)
   serve_gemma2  the same on full-width gemma2-2b (the windowed path)
   serve_fp8, serve_gemma2_fp8  the same on qwen2-1.5b and gemma2-2b with
@@ -290,18 +300,18 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.request import Request, SLOClass, SLOSpec  # noqa: E402
 from repro_torch.examples import quickstart  # noqa: E402
-from repro_torch.kernels import (build, chunked_prefill, ops,  # noqa: E402
-                                 paged_attention, ref, wkv6)
+from repro_torch.kernels import (build, chunked_prefill, fused,  # noqa: E402
+                                 ops, paged_attention, ref, wkv6)
 from repro_torch.launch import dist as dist_launch  # noqa: E402
 from repro_torch.launch import dryrun, hloanalysis  # noqa: E402
 from repro_torch.launch import mesh as mesh_launch  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
-from repro_torch.models import (mamba2, moe, rwkv6, sharding,  # noqa: E402
-                                tp, transformer)
+from repro_torch.models import (layers, mamba2, moe, rwkv6,  # noqa: E402
+                                sharding, tp, transformer)
 from repro_torch.models.layers import (MetaGenerator,  # noqa: E402
                                        _dense_init, decode_page_size,
-                                       to_e4m3)
+                                       rope_tables, to_e4m3)
 from repro_torch.perf import H100, CostModel, WorkerSpec  # noqa: E402
 from repro_torch.perf.calibrate import (calibrate_hardware,  # noqa: E402
                                         calibrate_interference)
@@ -367,7 +377,7 @@ ZAMBA2_HEADS = dict(hq=32, hkv=32, d=80)
 WHISPER_HEADS = dict(hq=16, hkv=16, d=64)
 # the serve phases' decode lengths at 8 slots (64..512, sum 2455)
 SERVE_LENGTHS = (300, 420, 96, 512, 280, 333, 64, 450)
-LIBS = (paged_attention.LIB, chunked_prefill.LIB, wkv6.LIB)
+LIBS = (paged_attention.LIB, chunked_prefill.LIB, wkv6.LIB, fused.LIB)
 
 
 def say(phase: str, **kv) -> None:
@@ -1090,11 +1100,147 @@ def phase_kernels(card: str) -> dict:
             library_ms=None, **_bound(byts, flops, torch.float32))
     for r in records.values():
         _say_timed(r, card)
-    say("kernels", kernels="chunked_prefill,paged_attention,wkv6",
+    for r in _fused_records(gen):
+        _say_timed(r, card)
+    say("kernels", kernels="chunked_prefill,paged_attention,wkv6,fused",
         launches_so_far={"chunked_prefill": chunked_prefill.launches_by_variant,
                          "paged_attention": paged_attention.launches_by_variant,
-                         "wkv6": wkv6.launches_by_variant})
+                         "wkv6": wkv6.launches_by_variant,
+                         "fused": fused.launches_by_variant})
     return records
+
+
+# the fused pointwise passes at deepseek-7b's widths (d_model 4096, 32 / 32
+# heads of 128, d_ff 11008), a decode step's 16 rows and a prefill step's
+# 16 x 512, bf16, the cache 16 slots of 1024
+FUSED_TIMED = (("decode", 16, 1), ("prefill", 16, 512))
+FUSED_WIDTHS = dict(d=4096, hq=32, hkv=32, hd=128, ff=11008, smax=MAX_LEN)
+
+
+def _ulps(got, want) -> float:
+    """The largest |got - want| in units in the last place of want."""
+    w = want.float()
+    ulp = torch.finfo(want.dtype).eps * torch.exp2(torch.floor(torch.log2(
+        w.abs().clamp_min(torch.finfo(want.dtype).tiny))))
+    return float(((got.float() - w).abs() / ulp).max())
+
+
+def _bits(t):
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+def _fused_records(gen) -> list:
+    """Each fused pass against its plain chain (``kernels.ref``) at a decode
+    and a prefill step's shapes: checked (the norm within one unit in the
+    last place, the rest bit for bit, e4m3 cache included) and timed. The
+    norm with a residual and without (layer 0's, gemma2's post-norms,
+    mamba2's), both activations; then, checked only, the attention pass at
+    the other families' heads (``FUSED_HEADS``)."""
+    w, bf = FUSED_WIDTHS, torch.bfloat16
+    out = []
+    for step, b, s in FUSED_TIMED:
+        rows = b * s
+        x, r = (_rand(gen, (b, s, w["d"]), bf) for _ in "xr")
+        scale = _rand(gen, (w["d"],), bf) * 0.1
+        for res in (r, None):
+            total, normed = fused.add_rms_norm(x, res, scale, 1e-6)
+            want_total, want = ref.add_rms_norm_ref(x, res, scale, 1e-6)
+            ulps = _ulps(normed, want)
+            name = "add_rms_norm" if res is not None else "rms_norm"
+            check(torch.equal(_bits(total), _bits(want_total)) and ulps <= 1,
+                  f"kernels: {name} {step} off by {ulps} ulp")
+            tensors = 4 if res is not None else 2
+            out.append(dict(
+                name=f"{name}_{step}", shape=f"{b}x{s}x{w['d']} bf16",
+                max_abs_err=ulps,
+                ms=time_ms(lambda: fused.add_rms_norm(x, res, scale, 1e-6)),
+                plain_ms=time_ms(lambda: ref.add_rms_norm_ref(x, res, scale,
+                                                              1e-6)),
+                library_ms=None, **_bound(
+                    2 * (tensors * rows * w["d"] + w["d"]), 0, bf)))
+        q = _rand(gen, (b, s, w["hq"], w["hd"]), bf)
+        k, v = (_rand(gen, (b, s, w["hkv"], w["hd"]), bf) for _ in "kv")
+        pos = torch.randint(0, w["smax"] - s + 1, (b,), generator=gen,
+                            device=DEV, dtype=torch.int32)
+        rot = _rope_at(pos, s, w["hd"])
+        for cache_dtype in (bf, E4M3):
+            kc, vc = (_rand(gen, (b, w["smax"], w["hkv"], w["hd"]),
+                            bf).to(cache_dtype) for _ in "kv")
+            kw, vw = kc.clone(), vc.clone()
+            got = fused.rope_cache_write(q, k, v, *rot, kc, vc, pos)
+            want = ref.rope_cache_write_ref(q, k, v, *rot, kw, vw, pos)
+            check(all(torch.equal(_bits(a), _bits(c)) for a, c in
+                      ((got, want), (kc, kw), (vc, vw))),
+                  f"kernels: rope_cache_write {step} {cache_dtype} differs")
+            tag = "" if cache_dtype == bf else "_e4m3"
+            new_rows = 2 * rows * w["hkv"] * w["hd"] * kc.element_size()
+            byts = 2 * (2 * q.numel() + 2 * k.numel()) \
+                + 2 * 4 * rows * w["hd"] // 2 + new_rows
+            out.append(dict(
+                name=f"rope_cache_write_{step}{tag}",
+                shape=f"{b}x{s} Hq={w['hq']} Hkv={w['hkv']} D={w['hd']} "
+                      f"bf16, cache {cache_dtype}",
+                max_abs_err=0.0,
+                ms=time_ms(lambda: fused.rope_cache_write(q, k, v, *rot, kc,
+                                                          vc, pos)),
+                plain_ms=time_ms(lambda: ref.rope_cache_write_ref(
+                    q, k, v, *rot, kw, vw, pos)),
+                library_ms=None, **_bound(byts, 0, bf)))
+        g, u = (_rand(gen, (b, s, w["ff"]), bf) for _ in "gu")
+        for act in fused.ACTIVATIONS:
+            check(torch.equal(_bits(fused.gated_act(g, u, act)),
+                              _bits(ref.gated_act_ref(g, u, act))),
+                  f"kernels: gated_act {act} {step} differs")
+            out.append(dict(
+                name=f"gated_{act}_{step}",
+                shape=f"{b}x{s}x{w['ff']} bf16 {act}", max_abs_err=0.0,
+                ms=time_ms(lambda: fused.gated_act(g, u, act)),
+                plain_ms=time_ms(lambda: ref.gated_act_ref(g, u, act)),
+                library_ms=None, **_bound(3 * 2 * g.numel(), 0, bf)))
+    _check_fused_heads(gen)
+    return out
+
+
+# the attention pass at the other families' heads, checked at a decode
+# step's 16 rows and a 64-token prefill chunk: (label, Hq, Hkv, head_dim,
+# q/k/v biases)
+FUSED_HEADS = (("qwen2", 12, 2, 128, True), ("zamba2", 32, 32, 80, False),
+               ("gemma2", 8, 4, 256, False), ("d64", 16, 16, 64, False))
+
+
+def _check_fused_heads(gen) -> None:
+    bf, smax = torch.bfloat16, FUSED_WIDTHS["smax"]
+    for label, hq, hkv, hd, bias in FUSED_HEADS:
+        for b, s in ((16, 1), (2, 64)):
+            q = _rand(gen, (b, s, hq, hd), bf)
+            k, v = (_rand(gen, (b, s, hkv, hd), bf) for _ in "kv")
+            biases = [_rand(gen, (h, hd), bf) for h in (hq, hkv, hkv)] \
+                if bias else []
+            # the last start past Smax - s, where the write is clamped back
+            pos = torch.randint(0, smax - s + 1, (b,), generator=gen,
+                                device=DEV, dtype=torch.int32)
+            pos[-1] = smax - s // 2
+            rot = _rope_at(pos, s, hd)
+            for cache_dtype in (bf, E4M3):
+                kc, vc = (_rand(gen, (b, smax, hkv, hd), bf).to(cache_dtype)
+                          for _ in "kv")
+                kw, vw = kc.clone(), vc.clone()
+                got = fused.rope_cache_write(q, k, v, *rot, kc, vc, pos,
+                                             *biases)
+                want = ref.rope_cache_write_ref(q, k, v, *rot, kw, vw, pos,
+                                                *biases)
+                check(all(torch.equal(_bits(a), _bits(c)) for a, c in
+                          ((got, want), (kc, kw), (vc, vw))),
+                      f"kernels: rope_cache_write {label} {b}x{s} "
+                      f"{cache_dtype} differs")
+    say("kernels", fused_heads_bit_equal=",".join(h[0] for h in FUSED_HEADS))
+
+
+def _rope_at(starts, s: int, hd: int):
+    """The rope tables of a step whose rows start at ``starts``."""
+    positions = starts.long()[:, None] + torch.arange(s, device=DEV)[None]
+    return rope_tables(positions, hd, 10_000.0)
 
 
 # prefill shapes the kernels phase times (bf16, 2 rows of 256 queries):
@@ -1243,17 +1389,21 @@ def _bound(byts: int, flops: int, dtype) -> dict:
 
 class _PlainKernels:
     """Inside this block the model's attention and WKV run the plain
-    versions on the card (a comparison only; the port's ops never do
-    this). ``wkv`` is the plain WKV: by default the form the JAX model
-    picks; ``scale`` multiplies every attention output (a nudge the size
-    of a kernel's rounding)."""
+    versions on the card, and so does the pointwise work between the
+    dense block's GEMMs (``layers.fuses`` says no to every tensor, so the
+    residual adds, norms, rope, cache writes and gated activations are
+    the plain ops at the model's own shapes). A comparison only; the
+    port's ops never do this. ``wkv`` is the plain WKV: by default the
+    form the JAX model picks; ``scale`` multiplies every attention output
+    (a nudge the size of a kernel's rounding)."""
 
     def __init__(self, wkv=ref.wkv6_ref, scale=1.0):
         self.wkv, self.scale = wkv, scale
 
     def __enter__(self):
         self.saved = (ops.paged_attention_op, ops.chunked_prefill_op,
-                      ops.wkv6_op)
+                      ops.wkv6_op, layers.fuses)
+        layers.fuses = lambda *tensors: False
         x = self.scale
         ops.paged_attention_op = lambda *a, softcap=None, window=None: \
             ref.paged_attention_ref(*a, softcap=softcap, window=window) * x
@@ -1264,7 +1414,7 @@ class _PlainKernels:
 
     def __exit__(self, *exc):
         (ops.paged_attention_op, ops.chunked_prefill_op,
-         ops.wkv6_op) = self.saved
+         ops.wkv6_op, layers.fuses) = self.saved
 
 
 # the dense model phases: (arch, rows, prompt tokens, chunk, cache length,
@@ -3059,7 +3209,7 @@ def phase_serve(card: str, phase: str, arch: str, kernels: dict,
             slot_gb=f"{per_token * max_len / 1e9:.3f}",
             cache_gb_a_worker=f"{stated / 1e9:.3f}",
             slots_a_worker=SERVE_SLOTS, workers=2)
-    for module in (chunked_prefill, paged_attention, wkv6):
+    for module in ops.COUNTED:
         module.launches = 0
         for v in getattr(module, "launches_by_variant", {}):
             module.launches_by_variant[v] = 0
@@ -3095,7 +3245,10 @@ def phase_serve(card: str, phase: str, arch: str, kernels: dict,
               f"{phase}: the dense fast path captured no graph")
     if changes.get("kv_cache_quant"):
         check(caches == {"float8_e4m3fn"}, f"{phase}: caches {caches}")
-    say(phase, launches=launches, by_variant=variants)
+    say(phase, launches=launches, by_variant=variants,
+        fused=dict(fused.launches_by_variant))
+    _check_fused_launches(phase, dataclasses.replace(get_config(arch),
+                                                     **changes))
     check(row["n_total"] > 0 and row["n_finished"] == row["n_total"],
           f"{phase}: not every request finished")
     if "scenario" not in traffic:
@@ -3121,6 +3274,43 @@ def phase_serve(card: str, phase: str, arch: str, kernels: dict,
     torch.cuda.empty_cache()
     return launches | {f"{name}.{v}": n for name, by in variants.items()
                        for v, n in by.items()}
+
+
+def _check_fused_launches(phase: str, cfg) -> None:
+    """The fused passes a serve phase launched (zeroed with the other
+    counted kernels before the run). Every forward of a dense, MoE or VLM
+    model launches, a layer, its two norms (four with gemma2's
+    post-norms), one attention pass and one gated activation (arctic's
+    dense residual MLP; the experts keep the plain ops), then the final
+    norm: the counts are the same whole multiple of those, in the
+    variants of the config's cache dtype and activation and no others.
+    zamba2's mamba blocks add norms of their own: there each pass must
+    have launched. rwkv6 keeps its LayerNorms."""
+    if cfg.use_layernorm or cfg.family not in ("dense", "moe", "vlm",
+                                               "hybrid"):
+        return
+    by = dict(fused.launches_by_variant)
+    rope_v = "rope_cache_write_e4m3" if cfg.kv_cache_quant \
+        else "rope_cache_write"
+    gated_v = f"gated_{cfg.mlp_activation}"
+    norms = by.pop("add_rms_norm") + by.pop("rms_norm")
+    rope, gated = by.pop(rope_v), by.pop(gated_v)
+    check(norms > 0 and rope > 0 and (gated > 0 or not cfg.mlp_gated)
+          and not any(by.values()),
+          f"{phase}: fused launches {dict(fused.launches_by_variant)}: "
+          f"the passes did not run on the main path, or another variant did")
+    if cfg.family == "hybrid":
+        return
+    n, left = divmod(rope, cfg.num_layers)
+    per_norms = (4 if cfg.use_post_norms else 2) * cfg.num_layers + 1
+    per_gated = cfg.num_layers if cfg.mlp_gated and (
+        not cfg.is_moe or cfg.moe_dense_residual_ff) else 0
+    check(left == 0 and norms == n * per_norms and gated == n * per_gated,
+          f"{phase}: fused launches {dict(fused.launches_by_variant)} are "
+          f"not a whole number of forwards of {per_norms} norms, "
+          f"{cfg.num_layers} attention passes and {per_gated} activations")
+    say(phase, fused_forwards=n, fused_per_forward=per_norms
+        + cfg.num_layers + per_gated)
 
 
 QUICKSTART_ARCHS = (ARCH, GEMMA2, RWKV)

@@ -11,7 +11,8 @@ past the causal frontier or outside the window). WKV6: 2·B·H·D² a token
 for a decode or a scan, and for the chunked form (T a multiple of 64,
 chunks of C = 64) 2·B·H·(2·C·D² + 2·C²·D) a chunk. Bytes are the op's
 inputs (for a decode, the K/V rows its table addresses) and its outputs,
-once each.
+once each. The fused pointwise passes count no FLOPs (the dry-run counts
+dots only) and their bytes alike: for the cache write, the new rows.
 
 A listener is any object with ``add_op(name, flops, nbytes, shapes)``;
 ``launch.hloanalysis.StepCost`` adds itself while it is on.
@@ -65,3 +66,9 @@ def wkv6_cost(r, k, v, w, u, s0, mode: str) -> tuple:
         flops = 2.0 * b * h * d * d * t
     return flops, _nbytes(r, k, v, w, u, s0) + 4.0 * r.numel() \
         + 4.0 * s0.numel()
+
+
+def pointwise_cost(reads, writes) -> tuple:
+    """(0 FLOPs, bytes) of a fused pointwise pass: the tensors it reads and
+    those it writes, once each (``None`` for an input not given)."""
+    return 0.0, _nbytes(*(t for t in (*reads, *writes) if t is not None))

@@ -1,4 +1,4 @@
-"""Dispatch for the kernels (attention, WKV6).
+"""Dispatch for the kernels (attention, WKV6, the fused pointwise passes).
 
 Tensors on the CPU go to the plain versions in ``kernels.ref``; tensors on
 a CUDA device go to the Hopper kernels, which launch or raise. Nothing
@@ -8,7 +8,10 @@ have no backward, and a launch through ``ctypes`` is invisible to
 autograd, so every op refuses, on both devices, inputs that require grad
 while grad mode is on: the training forwards compute attention with
 ``models.layers.attention_scores`` and WKV with ``models.rwkv6``'s
-``wkv_chunked`` / ``wkv_scan``, as the JAX package trains through XLA.
+``wkv_chunked`` / ``wkv_scan``, as the JAX package trains through XLA,
+and the dense block's pointwise work with the plain ops of
+``kernels.ref``, which ``models.layers`` calls where the fused passes do
+not run.
 
 Every call, on any device, reports its dense count to the listeners of
 ``kernels.cost`` (nothing is done when there are none).
@@ -21,8 +24,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (chunked_prefill, cost, paged_attention, ref,
-                                 wkv6)
+from repro_torch.kernels import (chunked_prefill, cost, fused,
+                                 paged_attention, ref, wkv6)
 
 
 def _device_kind(name: str, *tensors: torch.Tensor) -> str:
@@ -98,9 +101,64 @@ def wkv6_op(r, k, v, w, u, s0, mode: str):
     return wkv6.wkv6(*args)
 
 
+def add_rms_norm_op(x, r, w, eps: float):
+    """The residual sum x + r (B, S, d) in x's dtype and its RMSNorm with
+    the ``1 + w`` scale, one pass on the card; r None: (x, the norm of
+    x). Returns (sum, norm)."""
+    args = (x, w) if r is None else (x, r, w)
+    _refuse_grad("add_rms_norm_op", *args)
+    kind = _device_kind("add_rms_norm_op", *args)
+    if cost.LISTENERS:
+        cost.report("add_rms_norm", x, w, cost.pointwise_cost(
+            (x, r, w), (x, x if r is not None else None)))
+    if kind == "meta":
+        return (x if r is None else torch.empty_like(x),
+                torch.empty_like(x))
+    if kind == "cpu":
+        return ref.add_rms_norm_ref(x, r, w, eps)
+    return fused.add_rms_norm(x, r, w, eps)
+
+
+def rope_cache_write_op(q, k, v, cos, sin, k_cache, v_cache, write_pos,
+                        bq=None, bk=None, bv=None):
+    """q, k, v (B, S, H, D) with their biases (all three or none) added, q
+    and k rotated by ``rope_tables``' (cos, sin), k and v written into the
+    (B, Smax, Hkv, D) caches at clamp(write_pos, 0, Smax - S) in place (an
+    e4m3 cache by the JAX package's cast); returns the rotated q."""
+    biases = tuple(t for t in (bq, bk, bv) if t is not None)
+    args = (q, k, v, cos, sin, k_cache, v_cache, write_pos, *biases)
+    _refuse_grad("rope_cache_write_op", *args)
+    kind = _device_kind("rope_cache_write_op", *args)
+    if cost.LISTENERS:
+        new_rows = 2.0 * k.numel() * k_cache.element_size()
+        flops, nbytes = cost.pointwise_cost(
+            (q, k, v, cos, sin, write_pos, *biases), (q,))
+        cost.report("rope_cache_write", q, k_cache,
+                    (flops, nbytes + new_rows))
+    if kind == "meta":
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
+    if kind == "cpu":
+        return ref.rope_cache_write_ref(*args[:8], bq, bk, bv)
+    return fused.rope_cache_write(*args[:8], bq, bk, bv)
+
+
+def gated_act_op(g, u, kind: str):
+    """act(g) * u, ``kind`` "silu" or "gelu" (tanh), each rounded to g's
+    dtype as the plain ops round."""
+    _refuse_grad("gated_act_op", g, u)
+    device = _device_kind("gated_act_op", g, u)
+    if cost.LISTENERS:
+        cost.report("gated_act", g, u, cost.pointwise_cost((g, u), (g,)))
+    if device == "meta":
+        return torch.empty(g.shape, dtype=g.dtype, device="meta")
+    if device == "cpu":
+        return ref.gated_act_ref(g, u, kind)
+    return fused.gated_act(g, u, kind)
+
+
 # the wrapper modules that count their launches (``launches``,
 # ``launches_by_variant``)
-COUNTED = (chunked_prefill, paged_attention, wkv6)
+COUNTED = (chunked_prefill, paged_attention, wkv6, fused)
 
 
 class LaunchTally:

@@ -6,15 +6,19 @@ fp8 (e4m3) are first widened to q's dtype, as the JAX model casts its
 quantised cache before attention. WKV6: the form of the RWKV-6
 recurrence the JAX model picks (``wkv6_ref``), among the three that
 ``models/rwkv6.py`` keeps where JAX keeps them (``wkv_scan``,
-``wkv_chunked``, ``wkv_decode``, in f32). ``kernels.ops`` sends tensors
-that lie on the CPU here; ``chip_smoke.py`` holds each Hopper kernel
-against these on the card.
+``wkv_chunked``, ``wkv_decode``, in f32). The fused pointwise passes
+(``kernels/fused.py``): the dense block's own plain ops, RMSNorm, the
+rotary embedding, the cache write and the gated activation, as the model
+layers compute them wherever the passes do not run (``models/layers.py``
+calls these). ``kernels.ops`` sends tensors that lie on the CPU here;
+``chip_smoke.py`` holds each Hopper kernel against these on the card.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 # the module, not its names: models.rwkv6 imports kernels.ops, which
 # imports this module
@@ -96,3 +100,89 @@ def wkv6_ref(r, k, v, w, u, s0, mode: str):
         out, s = rwkv6.wkv_decode(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, s0)
         return out[:, None], s
     return rwkv6.wkv_sequence(r, k, v, w, u, s0)
+
+
+# ---------------------------------------------------------------------------
+# the fused pointwise passes: norms, rope, the cache write, gated activations
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def add_rms_norm_ref(x, r, w, eps: float):
+    """(x + r in x's dtype, ``rms_norm`` of it); r None: (x, its norm)."""
+    total = x if r is None else x + r
+    return total, rms_norm(total, w, eps)
+
+
+def rotate(x: torch.Tensor, tables) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim) rotated by ``rope_tables``' (cos,
+    sin). Rotates split halves (not interleaved pairs), as the JAX package
+    does."""
+    cos, sin = tables
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# The e4m3 cast of the JAX package (ml_dtypes): a value whose magnitude
+# exceeds 464 (halfway between 448, the largest finite e4m3, and 480)
+# becomes NaN, sign kept, where torch's cast saturates to +-448; below
+# that the two round alike.
+E4M3_OVERFLOW = 464.0
+
+
+def to_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """``x`` cast to ``torch.float8_e4m3fn`` as JAX casts it."""
+    nan = torch.full_like(x, float("nan")).copysign(x)
+    return torch.where(x.abs() > E4M3_OVERFLOW, nan, x).to(
+        torch.float8_e4m3fn)
+
+
+def cache_write(cache: torch.Tensor, new: torch.Tensor,
+                write_pos: torch.Tensor) -> None:
+    """cache (B, Smax, H, D) <- new (B, Snew, H, D) at rows
+    [write_pos[b], write_pos[b] + Snew), in place. Positions past the end
+    are clamped back as ``lax.dynamic_update_slice`` clamps them. An e4m3
+    cache takes ``to_e4m3(new)``, written as bytes."""
+    b, smax = cache.shape[:2]
+    snew = new.shape[1]
+    start = write_pos.long().clamp(0, smax - snew)
+    rows = torch.arange(b, device=cache.device)[:, None]
+    cols = start[:, None] + torch.arange(snew, device=cache.device)[None]
+    if cache.dtype == torch.float8_e4m3fn:
+        cache.view(torch.uint8)[rows, cols] = to_e4m3(new).view(torch.uint8)
+    else:
+        cache[rows, cols] = new.to(cache.dtype)
+
+
+def rope_cache_write_ref(q, k, v, cos, sin, k_cache, v_cache, write_pos,
+                         bq=None, bk=None, bv=None) -> torch.Tensor:
+    """The biases added (all three or none), q and k rotated by (cos,
+    sin), k and v written into the caches at ``write_pos`` (in place);
+    returns the rotated q."""
+    if bq is not None:
+        q, k, v = q + bq, k + bk, v + bv
+    q = rotate(q, (cos, sin))
+    k = rotate(k, (cos, sin))
+    cache_write(k_cache, k, write_pos)
+    cache_write(v_cache, v, write_pos)
+    return q
+
+
+def activate(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(kind)
+
+
+def gated_act_ref(g: torch.Tensor, u: torch.Tensor, kind: str) -> torch.Tensor:
+    """``activate(g, kind) * u``, each op rounding to g's dtype."""
+    return activate(g, kind) * u

@@ -14,6 +14,13 @@ Conventions
   cross-attention) is ``attention_scores``, plain torch ops under autograd
   as the JAX ``_attn_block`` is XLA; the kernels refuse inputs that
   require grad.
+* The pointwise work between the dense block's matrix products (the
+  residual add and RMSNorm, bias, rope and the cache write, the gated
+  activation) is one fused pass a gap (``kernels.ops``' ``add_rms_norm_op``,
+  ``rope_cache_write_op``, ``gated_act_op``) where ``fuses`` holds: plain
+  tensors on the card with no gradient to track. Everywhere else (the
+  CPU, the meta device, DTensors, training) it is the plain ops of
+  ``kernels.ref``, the same arithmetic op by op.
 * Nothing on a step's path waits for the card (no ``.item()``, no shape
   read from a tensor's values), so a step can be captured as a CUDA graph
   (``serving.executor``).
@@ -26,10 +33,9 @@ import math
 from typing import Any, Optional
 
 import torch
-import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import tp
 
 
@@ -181,11 +187,23 @@ def unstack(tree) -> list:
 # ---------------------------------------------------------------------------
 
 
+def fuses(*tensors: torch.Tensor) -> bool:
+    """Whether the fused pointwise passes take these tensors: plain tensors
+    (not DTensors) on a CUDA device, with no gradient to track. The CPU,
+    the meta device, DTensors and the training forwards keep the plain
+    ops."""
+    return (tensors[0].device.type == "cuda"
+            and not any(tp.is_dt(t) for t in tensors)
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in tensors)))
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * (1.0 + scale.float())).to(x.dtype)
+    """``kernels.ref.rms_norm``: f32 statistics, the ``1 + scale`` form, the
+    result in x's dtype (one pass on the card)."""
+    if fuses(x, scale):
+        return ops.add_rms_norm_op(x, None, scale, eps)[1]
+    return ref.rms_norm(x, scale, eps)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -211,6 +229,18 @@ def apply_norm(params, x, cfg: ModelConfig):
     return rms_norm(x, params["scale"], cfg.norm_eps)
 
 
+def add_norm(params, x, r, cfg: ModelConfig):
+    """The residual stream x + r and its norm: (x + r, apply_norm of it);
+    r None: (x, apply_norm(x)). On the card an RMSNorm and the sum before
+    it are one pass; elsewhere the sum in x's layout, then the norm."""
+    if r is None:
+        return x, apply_norm(params, x, cfg)
+    if not cfg.use_layernorm and fuses(x, r, params["scale"]):
+        return ops.add_rms_norm_op(x, r, params["scale"], cfg.norm_eps)
+    x = tp.keep(x + r, x)
+    return x, apply_norm(params, x, cfg)
+
+
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------
@@ -234,12 +264,9 @@ def rope_tables(positions: torch.Tensor, head_dim: int,
 
 def rotate(x: torch.Tensor, tables) -> torch.Tensor:
     """x: (..., seq, heads, head_dim) rotated by ``rope_tables``' (cos,
-    sin). Rotates split halves (not interleaved pairs), as the JAX package
-    does."""
-    cos, sin = tables
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    sin): ``kernels.ref.rotate``, split halves (not interleaved pairs), as
+    the JAX package does."""
+    return ref.rotate(x, tables)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -356,45 +383,60 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
     ``tables`` holds what every layer of a step shares, built once by the
     caller: ``"rope"`` (``rope_tables`` at ``positions``) and, for a
     decode, ``"pages"`` (``decode_block_table`` of this layer's cache
-    length); what is missing is built here. An fp8 (e4m3) cache stores
-    K/V through ``to_e4m3`` and the kernels widen it to q's dtype, as the
-    JAX model casts the cache.
+    length) and ``"kv_lengths"`` (the kernel's int32 lengths above); what
+    is missing is built here. An fp8 (e4m3) cache stores K/V through
+    ``to_e4m3`` and the kernels widen it to q's dtype, as the JAX model
+    casts the cache. Where ``fuses`` holds and the cache is in q's dtype
+    or e4m3, the biases, the rope and the cache write are one pass
+    (``ops.rope_cache_write_op``).
     """
     tables = tables or {}
     q = _project(x, params["wq"])
-    if cfg.qkv_bias:
-        q = q + params["bq"]
-    scores = tp.scores_attention if tp.is_dt(q) else attention_scores
-    if cross_kv is not None:
-        out = scores(q, *cross_kv, mask, cfg.attn_softcap, cfg.attn_q_chunk)
-        return _out_project(params, out), None
-    k, v = compute_kv(params, x, cfg)
-    if rope:
+    if kv_cache is not None and cross_kv is None and rope and fuses(q) \
+            and kv_cache[0].dtype in (q.dtype, torch.float8_e4m3fn):
         rot = tables.get("rope") or rope_tables(positions, cfg.head_dim,
                                                 cfg.rope_theta)
-        q = rotate(q, rot)
-        k = rotate(k, rot)
-    if kv_cache is None:
-        out = scores(q, k, v, mask, cfg.attn_softcap, cfg.attn_q_chunk)
-        return _out_project(params, out), (k, v)
+        biases = [params[n] for n in ("bq", "bk", "bv")] \
+            if cfg.qkv_bias else []
+        k_cache, v_cache = kv_cache
+        q = ops.rope_cache_write_op(
+            q, _project(x, params["wk"]), _project(x, params["wv"]), *rot,
+            k_cache, v_cache, cache_positions.to(torch.int32), *biases)
+    else:
+        if cfg.qkv_bias:
+            q = q + params["bq"]
+        scores = tp.scores_attention if tp.is_dt(q) else attention_scores
+        if cross_kv is not None:
+            out = scores(q, *cross_kv, mask, cfg.attn_softcap,
+                         cfg.attn_q_chunk)
+            return _out_project(params, out), None
+        k, v = compute_kv(params, x, cfg)
+        if rope:
+            rot = tables.get("rope") or rope_tables(positions, cfg.head_dim,
+                                                    cfg.rope_theta)
+            q = rotate(q, rot)
+            k = rotate(k, rot)
+        if kv_cache is None:
+            out = scores(q, k, v, mask, cfg.attn_softcap, cfg.attn_q_chunk)
+            return _out_project(params, out), (k, v)
 
-    k_cache, v_cache = kv_cache
-    if tp.is_dt(q):
-        out = tp.cache_attention(q, k, v, k_cache, v_cache,
-                                 cache_positions=cache_positions,
-                                 lengths=lengths, mask=mask,
-                                 softcap=cfg.attn_softcap)
-        return _out_project(params, out), (k_cache, v_cache)
-    _cache_write(k_cache, k, cache_positions)
-    _cache_write(v_cache, v, cache_positions)
+        k_cache, v_cache = kv_cache
+        if tp.is_dt(q):
+            out = tp.cache_attention(q, k, v, k_cache, v_cache,
+                                     cache_positions=cache_positions,
+                                     lengths=lengths, mask=mask,
+                                     softcap=cfg.attn_softcap)
+            return _out_project(params, out), (k_cache, v_cache)
+        _cache_write(k_cache, k, cache_positions)
+        _cache_write(v_cache, v, cache_positions)
 
     if mask.kind in ("lengths", "ring"):
         pages = tables.get("pages")
         if pages is None:
             pages = decode_block_table(*k_cache.shape[:2], x.device)
-        n = lengths + 1
-        if mask.kind == "ring":
-            n = n.clamp(max=k_cache.shape[1])
+        n = tables.get("kv_lengths")
+        if n is None:
+            n = decode_lengths(lengths, k_cache.shape[1], mask.kind == "ring")
         out = _decode_attention(q[:, 0], k_cache, v_cache, pages, n,
                                 cfg.attn_softcap, mask.window)[:, None]
     elif mask.kind in ("causal", "chunk"):
@@ -410,6 +452,17 @@ def apply_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
         raise ValueError(f"mask kind {mask.kind!r} over a KV cache: the "
                          "cache's kinds are causal, chunk, lengths and ring")
     return _out_project(params, out), (k_cache, v_cache)
+
+
+def decode_lengths(lengths: torch.Tensor, size: int,
+                   ring: bool) -> torch.Tensor:
+    """The decode kernel's int32 lengths over a cache of ``size`` rows for
+    the model's write positions ``lengths``: ``lengths + 1``, at most
+    ``size`` over a ring (``apply_attention``), built once a step."""
+    n = lengths + 1
+    if ring:
+        n = n.clamp(max=size)
+    return n.to(torch.int32)
 
 
 def _out_project(params, out: torch.Tensor) -> torch.Tensor:
@@ -494,35 +547,18 @@ def _decode_attention(q, k_cache, v_cache, tables, lengths, softcap,
                                   window=window)
 
 
-# The e4m3 cast of the JAX package (ml_dtypes): a value whose magnitude
-# exceeds 464 (halfway between 448, the largest finite e4m3, and 480)
-# becomes NaN, sign kept, where torch's cast saturates to +-448; below
-# that the two round alike.
-E4M3_OVERFLOW = 464.0
-
-
 def to_e4m3(x: torch.Tensor) -> torch.Tensor:
-    """``x`` cast to ``torch.float8_e4m3fn`` as JAX casts it."""
-    nan = torch.full_like(x, float("nan")).copysign(x)
-    return torch.where(x.abs() > E4M3_OVERFLOW, nan, x).to(
-        torch.float8_e4m3fn)
+    """``x`` cast to ``torch.float8_e4m3fn`` as JAX casts it
+    (``kernels.ref.to_e4m3``: NaN, sign kept, past 464)."""
+    return ref.to_e4m3(x)
 
 
 def _cache_write(cache: torch.Tensor, new: torch.Tensor,
                  write_pos: torch.Tensor) -> None:
     """cache (B, Smax, H, D) <- new (B, Snew, H, D) at rows
-    [write_pos[b], write_pos[b] + Snew), in place. Positions past the end
-    are clamped back as ``lax.dynamic_update_slice`` clamps them. An e4m3
-    cache takes ``to_e4m3(new)``, written as bytes."""
-    b, smax = cache.shape[:2]
-    snew = new.shape[1]
-    start = write_pos.long().clamp(0, smax - snew)
-    rows = torch.arange(b, device=cache.device)[:, None]
-    cols = start[:, None] + torch.arange(snew, device=cache.device)[None]
-    if cache.dtype == torch.float8_e4m3fn:
-        cache.view(torch.uint8)[rows, cols] = to_e4m3(new).view(torch.uint8)
-    else:
-        cache[rows, cols] = new.to(cache.dtype)
+    [write_pos[b], write_pos[b] + Snew), in place, clamped back as
+    ``lax.dynamic_update_slice`` clamps (``kernels.ref.cache_write``)."""
+    ref.cache_write(cache, new, write_pos)
 
 
 # ---------------------------------------------------------------------------
@@ -544,17 +580,22 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _activate(x: torch.Tensor, kind: str) -> torch.Tensor:
-    if kind == "silu":
-        return F.silu(x)
-    if kind == "gelu":
-        return F.gelu(x, approximate="tanh")
-    raise ValueError(kind)
+    """SiLU or tanh-GELU (``kernels.ref.activate``)."""
+    return ref.activate(x, kind)
 
 
 def apply_mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The gated MLP's activation and product are one pass where ``fuses``
+    holds (``ops.gated_act_op``)."""
     u = x @ params["w_up"]
     if "w_gate" in params:
-        u = _activate(x @ params["w_gate"], cfg.mlp_activation) * u
+        g = x @ params["w_gate"]
+        if fuses(g, u):
+            u = ops.gated_act_op(g, u, cfg.mlp_activation)
+        else:
+            g = _activate(g, cfg.mlp_activation)  # the pre-activation freed
+            u = g * u
+        del g                             # before the down projection
     else:
         u = _activate(u, cfg.mlp_activation)
     return tp.rows_layout(u @ params["w_down"], x)

@@ -168,10 +168,16 @@ def with_layer_views(params):
 
 def _block_fn(bp, x, cfg: ModelConfig, *, positions, mask: MaskSpec, window,
               kv, cache_positions, lengths=None, tables=None, ring=False,
-              ep: Optional[M.EPInfo] = None):
-    """One block. ``ring``: this layer's cache is a window-sized ring
-    (decode only), written at ``cache_positions mod`` its size and read
-    under the "ring" mask, which the window reduces to there."""
+              ep: Optional[M.EPInfo] = None, pending=None):
+    """One block over the residual stream ``x + pending`` (``pending``:
+    the previous block's MLP output, not yet added; None: x alone).
+    Returns (x, pending, new_kv). Where the fused passes run (an RMSNorm
+    model, ``L.fuses``), the MLP output is left out of x as the next
+    pending, for the next norm's pass to add (``L.add_norm``); elsewhere
+    it is added here and pending is None, the plain ops in their order.
+    ``ring``: this layer's cache is a window-sized ring (decode only),
+    written at ``cache_positions mod`` its size and read under the "ring"
+    mask, which the window reduces to there."""
     if ring:
         mask = MaskSpec("ring")
         cache_positions = torch.remainder(cache_positions, kv[0].shape[1])
@@ -179,14 +185,13 @@ def _block_fn(bp, x, cfg: ModelConfig, *, positions, mask: MaskSpec, window,
         mask = MaskSpec(kind=mask.kind,
                         window=None if window >= NO_WINDOW else window,
                         q_offset=mask.q_offset)
-    h = L.apply_norm(bp["norm_attn"], x, cfg)
+    x, h = L.add_norm(bp["norm_attn"], x, pending, cfg)
     attn_out, new_kv = L.apply_attention(
         bp["attn"], h, cfg, positions=positions, mask=mask, kv_cache=kv,
         cache_positions=cache_positions, lengths=lengths, tables=tables)
     if "norm_attn_post" in bp:
         attn_out = L.apply_norm(bp["norm_attn_post"], attn_out, cfg)
-    x = tp.keep(x + attn_out, x)
-    h = L.apply_norm(bp["norm_mlp"], x, cfg)
+    x, h = L.add_norm(bp["norm_mlp"], x, attn_out, cfg)
     if cfg.is_moe:
         mlp_out = M.apply_moe(bp["moe"], h, cfg, ep)
         if cfg.moe_dense_residual_ff:
@@ -195,14 +200,18 @@ def _block_fn(bp, x, cfg: ModelConfig, *, positions, mask: MaskSpec, window,
         mlp_out = L.apply_mlp(bp["mlp"], h, cfg)
     if "norm_mlp_post" in bp:
         mlp_out = L.apply_norm(bp["norm_mlp_post"], mlp_out, cfg)
-    return tp.keep(x + mlp_out, x), new_kv
+    if not cfg.use_layernorm and L.fuses(x, mlp_out):
+        return x, mlp_out, new_kv
+    return tp.keep(x + mlp_out, x), None, new_kv
 
 
 def _run_blocks(params, x, cfg: ModelConfig, *, positions, mask, cache,
                 cache_positions, lengths=None, ep=None):
     """Every layer over ``x``, with the tables they share built once: the
-    rope tables, and for a decode one block table per distinct cache
-    length (a ring's and the full one)."""
+    rope tables, and for a decode one block table and one set of kernel
+    lengths per distinct cache length (a ring's and the full one). Returns
+    (x, pending): the residual stream is x + pending, the last block's MLP
+    output left for the final norm's pass to add (None: x is the stream)."""
     layers = with_layer_views(params)["layers"]
     rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     sizes, rings = _sizes(cache), ring_layers(cache)
@@ -212,19 +221,26 @@ def _run_blocks(params, x, cfg: ModelConfig, *, positions, mask, cache,
         if mask.kind == "lengths":
             tables[size]["pages"] = L.decode_block_table(x.shape[0], size,
                                                          x.device)
+            if not tp.is_dt(x):          # tp.cache_attention takes lengths
+                tables[size]["kv_lengths"] = L.decode_lengths(
+                    lengths, size, ring=size < max(sizes))
+    pending = None
     for i, window in enumerate(layer_windows_py(cfg)):
-        x, _ = _block_fn(
+        x, pending, _ = _block_fn(
             layers[i], x, cfg, positions=positions, mask=mask, window=window,
             kv=(cache["k"][i], cache["v"][i]),
             cache_positions=cache_positions, lengths=lengths,
-            tables=tables[sizes[i]], ring=rings[i], ep=ep)
-    return x, cache
+            tables=tables[sizes[i]], ring=rings[i], ep=ep, pending=pending)
+    return x, pending
 
 
-def _last_logits(params, x, idx, cfg: ModelConfig):
-    """Final norm + unembed of x[b, idx[b]] -> (B, V) f32."""
-    last = L.take_rows(x, idx)
-    last = L.apply_norm(params["final_norm"], last[:, None], cfg)
+def _last_logits(params, x, pending, idx, cfg: ModelConfig):
+    """Final norm + unembed of (x + pending)[b, idx[b]] -> (B, V) f32:
+    with a pending MLP output (the fused passes), only the taken rows are
+    summed, in the norm's pass."""
+    last = L.take_rows(x, idx)[:, None]
+    r = None if pending is None else L.take_rows(pending, idx)[:, None]
+    _, last = L.add_norm(params["final_norm"], last, r, cfg)
     return L.unembed(params["embed"], last, cfg)[:, 0]
 
 
@@ -261,11 +277,11 @@ def prefill(params, cache, tokens, lengths, cfg: ModelConfig, ep=None,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     zero = torch.zeros((b,), dtype=torch.int32, device=x.device)
-    x, cache = _run_blocks(params, x, cfg, positions=positions,
-                           mask=MaskSpec("causal"), cache=cache,
-                           cache_positions=zero, ep=ep)
+    x, pending = _run_blocks(params, x, cfg, positions=positions,
+                             mask=MaskSpec("causal"), cache=cache,
+                             cache_positions=zero, ep=ep)
     idx = (lengths.long() - 1).clamp(0, s - 1)
-    return _last_logits(params, x, idx, cfg), cache
+    return _last_logits(params, x, pending, idx, cfg), cache
 
 
 def prefill_chunk(params, cache, chunk, starts, cfg: ModelConfig, ep=None,
@@ -278,14 +294,14 @@ def prefill_chunk(params, cache, chunk, starts, cfg: ModelConfig, ep=None,
     x = L.embed(params["embed"], chunk, cfg)
     b, sc, _ = x.shape
     positions = starts.long()[:, None] + torch.arange(sc, device=x.device)[None]
-    x, cache = _run_blocks(params, x, cfg, positions=positions,
-                           mask=MaskSpec("chunk"), cache=cache,
-                           cache_positions=starts, lengths=starts, ep=ep)
+    x, pending = _run_blocks(params, x, cfg, positions=positions,
+                             mask=MaskSpec("chunk"), cache=cache,
+                             cache_positions=starts, lengths=starts, ep=ep)
     if take is None:
         idx = torch.full((b,), sc - 1, dtype=torch.long, device=x.device)
     else:
         idx = (take.long() - 1).clamp(0, sc - 1)
-    return _last_logits(params, x, idx, cfg), cache
+    return _last_logits(params, x, pending, idx, cfg), cache
 
 
 def decode(params, cache, tokens, lengths, cfg: ModelConfig, ep=None):
@@ -294,18 +310,20 @@ def decode(params, cache, tokens, lengths, cfg: ModelConfig, ep=None):
     Returns (logits (B, V), cache)."""
     x = L.embed(params["embed"], tokens[:, None], cfg)
     positions = lengths.long()[:, None]
-    x, cache = _run_blocks(params, x, cfg, positions=positions,
-                           mask=MaskSpec("lengths"), cache=cache,
-                           cache_positions=lengths, lengths=lengths, ep=ep)
-    x = L.apply_norm(params["final_norm"], x, cfg)
+    x, pending = _run_blocks(params, x, cfg, positions=positions,
+                             mask=MaskSpec("lengths"), cache=cache,
+                             cache_positions=lengths, lengths=lengths, ep=ep)
+    _, x = L.add_norm(params["final_norm"], x, pending, cfg)
     return L.unembed(params["embed"], x, cfg)[:, 0], cache
 
 
 def _train_block(bp, x, cfg: ModelConfig, *, positions, window, tables,
                  ep=None):
-    return _block_fn(bp, x, cfg, positions=positions,
-                     mask=MaskSpec("causal"), window=window, kv=None,
-                     cache_positions=None, tables=tables, ep=ep)[0]
+    x, pending, _ = _block_fn(bp, x, cfg, positions=positions,
+                              mask=MaskSpec("causal"), window=window,
+                              kv=None, cache_positions=None, tables=tables,
+                              ep=ep)
+    return x if pending is None else x + pending
 
 
 def forward_train(params, tokens, cfg: ModelConfig, ep=None,

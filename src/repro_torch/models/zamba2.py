@@ -95,6 +95,9 @@ def _run(params, x, state, cfg: ModelConfig, seq_mode: str, *, positions,
     if mask.kind == "lengths":
         tables["pages"] = L.decode_block_table(*state["k"].shape[1:3],
                                                x.device)
+        if not tp.is_dt(x):              # tp.cache_attention takes lengths
+            tables["kv_lengths"] = L.decode_lengths(
+                lengths, state["k"].shape[2], ring=False)
     mamba = state["mamba"]
     for inv in range(n_shared_invocations(cfg)):
         lo = inv * cfg.attn_every

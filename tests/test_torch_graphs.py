@@ -36,7 +36,7 @@ def _per_layer_run(params, cache, x, cfg, *, positions, mask,
     """The blocks as before the step-wide tables: each layer's attention
     computes its own rope tables (for q and for k) and block table."""
     for i, window in enumerate(T.layer_windows_py(cfg)):
-        x, _ = T._block_fn(
+        x, _, _ = T._block_fn(
             TL.layer(params["blocks"], i), x, cfg, positions=positions,
             mask=mask, window=window, kv=(cache["k"][i], cache["v"][i]),
             cache_positions=cache_positions, lengths=lengths)
@@ -50,7 +50,8 @@ def _old_prefill_chunk(params, cache, chunk, starts, cfg, take):
     x = _per_layer_run(params, cache, x, cfg, positions=positions,
                        mask=TL.MaskSpec("chunk"), cache_positions=starts,
                        lengths=starts)
-    return T._last_logits(params, x, (take.long() - 1).clamp(0, sc - 1), cfg)
+    return T._last_logits(params, x, None, (take.long() - 1).clamp(0, sc - 1),
+                          cfg)
 
 
 def _old_decode(params, cache, tokens, lengths, cfg):

@@ -25,6 +25,7 @@ from repro.kernels.paged_attention import paged_attention  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import chunked_prefill as tchunk  # noqa: E402
+from repro_torch.kernels import fused as tfused  # noqa: E402
 from repro_torch.kernels import paged_attention as tpaged  # noqa: E402
 from repro_torch.kernels import wkv6 as twkv  # noqa: E402
 
@@ -527,7 +528,7 @@ def test_tensor_core_head_dims_are_one_rule():
         == (64, 80, 128, 256)
 
 
-@pytest.mark.parametrize("module", [tchunk, tpaged, twkv],
+@pytest.mark.parametrize("module", [tchunk, tpaged, twkv, tfused],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_exported_kernel_names_are_the_sources_kernels(module):
     """The names chip_smoke.py's profile matches device time by are the

@@ -29,7 +29,8 @@ def no_plain(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a plain version ran for meta tensors")
     for name in ("paged_attention_ref", "chunked_prefill_attention_ref",
-                 "wkv6_ref"):
+                 "wkv6_ref", "add_rms_norm_ref", "rope_cache_write_ref",
+                 "gated_act_ref"):
         monkeypatch.setattr(ref, name, refuse)
 
 
@@ -77,6 +78,46 @@ def test_wkv6_meta(no_plain, b, t, h, d, mode):
     else:
         want = 2.0 * b * h * d * d * t
     assert cost.flops == want
+
+
+@pytest.mark.parametrize("rows,d,residual", [(16, 4096, True),
+                                             (8192, 2304, False)])
+def test_add_rms_norm_meta(no_plain, rows, d, residual):
+    x = _meta(rows, 1, d)
+    r = _meta(rows, 1, d) if residual else None
+    with StepCost() as cost:
+        total, out = ops.add_rms_norm_op(x, r, _meta(d), 1e-6)
+    for t in (total, out):
+        assert t.is_meta and t.shape == x.shape and t.dtype == x.dtype
+    assert cost.flops == 0.0
+    # x (and r) read, the norm (and the sum) written, the scale read
+    assert cost.bytes == 2 * (x.numel() * (4 if residual else 2) + d)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,cache", [
+    (16, 1, 32, 32, 128, torch.bfloat16), (2, 512, 12, 2, 128, None),
+    (8, 1, 8, 1, 256, torch.float8_e4m3fn)])
+def test_rope_cache_write_meta(no_plain, b, s, hq, hkv, d, cache):
+    q, k = _meta(b, s, hq, d), _meta(b, s, hkv, d)
+    tables = _meta(b, s, 1, d // 2, dtype=torch.float32)
+    kc = _meta(b, 1024, hkv, d, dtype=cache or torch.bfloat16)
+    with StepCost() as cost:
+        out = ops.rope_cache_write_op(q, k, k, tables, tables, kc, kc,
+                                      _meta(b, dtype=torch.int32))
+    assert out.is_meta and out.shape == q.shape and out.dtype == q.dtype
+    assert cost.flops == 0.0
+    assert cost.bytes == 2 * (2 * q.numel() + 2 * k.numel()) \
+        + 2 * tables.numel() * 4 + b * 4 + 2 * k.numel() * kc.element_size()
+    assert cost.kernel_calls[0][:3] == ("rope_cache_write", tuple(q.shape),
+                                        tuple(kc.shape))
+
+
+def test_gated_act_meta(no_plain):
+    g = _meta(16, 1, 11008)
+    with StepCost() as cost:
+        out = ops.gated_act_op(g, g, "silu")
+    assert out.is_meta and out.shape == g.shape and out.dtype == g.dtype
+    assert cost.flops == 0.0 and cost.bytes == 3 * g.numel() * 2
 
 
 def test_cpu_inputs_still_take_the_plain_versions_and_count():

@@ -165,6 +165,32 @@ def test_kernel_input_checks_refuse_what_the_kernels_do_not_take():
     for d in (12, 264):
         with pytest.raises(ValueError, match="head_dim"):
             build.check_head_dim("k", d)
+    # the fused pointwise passes' own checks, on top of those
+    from repro_torch.kernels import fused
+    bf = torch.bfloat16
+    q, kv = torch.zeros(2, 1, 4, 16, dtype=bf), torch.zeros(2, 1, 2, 16,
+                                                            dtype=bf)
+    tables = torch.zeros(2, 1, 1, 8)
+    cache = torch.zeros(2, 8, 2, 16, dtype=bf)
+    pos = torch.zeros(2, dtype=torch.int32)
+    ok = (q, kv, kv, tables, tables, cache, cache, pos)
+    assert fused.check_rope_cache_write(*ok) == build.DTYPE_CODES[bf]
+    bad = {"int32": {7: pos.long()},
+           "do not match k": {5: torch.zeros(2, 8, 4, 16, dtype=bf)},
+           "rope tables must be f32": {3: tables.to(bf)},
+           "K/V dtypes": {6: cache.float()},
+           "mixed dtypes": {1: kv.float()}}
+    for match, change in bad.items():
+        args = [change.get(i, a) for i, a in enumerate(ok)]
+        with pytest.raises(ValueError, match=match):
+            fused.check_rope_cache_write(*args)
+    with pytest.raises(ValueError, match="all three biases or none"):
+        fused.check_rope_cache_write(*ok, torch.zeros(4, 16, dtype=bf))
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        fused.check_add_rms_norm(half, None, torch.zeros(8,
+                                                         dtype=torch.float16))
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.check_gated_act(f32.t(), f32.t(), "silu")
 
 
 # every module of the JAX package has a counterpart in the port, but those
