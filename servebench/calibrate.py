@@ -108,8 +108,8 @@ def main(argv=None) -> int:
     t0 = time.time()
     if dev.type == "cuda":
         build.build_all([chunked_prefill.LIB, paged_attention.LIB])
-    shape = cell.config.shape()
-    params = weights.make(shape, args.seed, dev, cell.config.dtype)
+    tree = cell.config.layout()
+    params = weights.make(tree, args.seed, dev)
     port = serve.Port(cell, params, dev)
     port.warm()
     emit("setup", seconds=time.time() - t0)
@@ -169,14 +169,14 @@ def main(argv=None) -> int:
         report["rate"] = cell.rate
 
     for seed in [int(s) for s in args.control_seeds.split(",") if s]:
-        weights.redraw(params, shape, seed)
+        weights.redraw(params, tree, seed)
         win, summary, _ = _window(port, cell, seed,
                                   args.control_seconds or args.seconds)
         items = check.sample(win, port, cell, seed)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         t = time.time()
-        got = check.gaps(params, cell.config.arch(), items, dev,
+        got = check.gaps(params, cell.config, items, dev,
                          route_margin=cell.correct.get("route_margin", 0.0),
                          control=True)
         emit("control", seed=seed, rate=cell.rate, summary=summary,

@@ -6,10 +6,13 @@ its own:
   each), the offered rate, the SLO limits and the correctness limit, all
   fixed numbers;
 * ``servebench/configs/<config>.json``: the model's published
-  ``config.json`` keys as run, with ``reduced`` and ``assumed``;
+  ``config.json`` keys as run, with ``reduced`` and ``assumed``, and under
+  ``arch`` the name of its architecture (``servebench/archs``; ``llama``
+  where it gives none);
 * ``servebench/traffic/<mix>.json``: ``traffic.Mix``'s distributions.
 
-A later cell, model or mix is a new file; nothing here names one.
+A later cell, model, architecture or mix is a new file; nothing here
+names one but the default architecture.
 """
 from __future__ import annotations
 
@@ -17,10 +20,10 @@ import dataclasses
 import json
 from pathlib import Path
 
-from servebench import cost, traffic
-from servebench.reference.model import Arch
+from servebench import archs, traffic
 
 HERE = Path(__file__).resolve().parent
+DEFAULT_ARCH = "llama"
 
 
 def _json(kind: str, name: str) -> dict:
@@ -42,42 +45,23 @@ class Config:
     def name(self) -> str:
         return self.raw["name"]
 
-    def _get(self, key, default=None):
-        return self.raw.get(key, default)
+    @property
+    def arch(self):
+        """The architecture's harness module (``servebench/archs``), by the
+        name under ``arch``."""
+        return archs.harness(self.raw.get("arch", DEFAULT_ARCH))
 
     @property
-    def head_dim(self) -> int:
-        return self.raw.get("head_dim", self.raw["hidden_size"]
-                            // self.raw["num_attention_heads"])
+    def reference(self):
+        """The architecture's plain reference (``servebench/reference``)."""
+        return archs.reference(self.raw.get("arch", DEFAULT_ARCH))
 
-    @property
-    def residual_ff(self) -> int:
-        """The dense residual MLP's width beside a MoE layer
-        (``parallel_attn_mlp_res``), from its own key: Arctic's
-        ``modeling_arctic.py`` builds it ``hidden_size`` wide, not
-        ``intermediate_size``."""
-        return self.raw["residual_mlp_ffn_dim"] \
-            if self._get("parallel_attn_mlp_res") else 0
+    def shape(self):
+        return self.arch.shape(self.raw)
 
-    def shape(self) -> cost.Shape:
-        r = self.raw
-        return cost.Shape(
-            layers=r["num_hidden_layers"], d_model=r["hidden_size"],
-            heads=r["num_attention_heads"], kv_heads=r["num_key_value_heads"],
-            head_dim=self.head_dim, d_ff=r["intermediate_size"],
-            vocab=r["vocab_size"], experts=self._get("num_local_experts", 0),
-            top_k=self._get("num_experts_per_tok", 0),
-            dense_residual_ff=self.residual_ff,
-            tied=bool(self._get("tie_word_embeddings", False)))
-
-    def arch(self) -> Arch:
-        s = self.shape()
-        return Arch(layers=s.layers, d_model=s.d_model, heads=s.heads,
-                    kv_heads=s.kv_heads, head_dim=s.head_dim, d_ff=s.d_ff,
-                    vocab=s.vocab, rope_theta=float(self.raw["rope_theta"]),
-                    norm_eps=float(self.raw["rms_norm_eps"]),
-                    experts=s.experts, top_k=s.top_k,
-                    dense_residual_ff=s.dense_residual_ff)
+    def layout(self) -> dict:
+        """The weights' tree, in the configuration's type."""
+        return self.arch.layout(self.shape(), self.dtype)
 
     @property
     def dtype(self):
@@ -88,20 +72,7 @@ class Config:
 
     def port_config(self):
         """The port's ``ModelConfig`` of this configuration."""
-        from repro_torch.models.layers import ModelConfig
-        if self.raw.get("hidden_act", "silu") != "silu":
-            raise ValueError(f"{self.name}: the port's gated MLP here is "
-                             "SwiGLU (hidden_act silu)")
-        s = self.shape()
-        return ModelConfig(
-            name=self.name, family="moe" if s.experts else "dense",
-            num_layers=s.layers, d_model=s.d_model, num_heads=s.heads,
-            num_kv_heads=s.kv_heads, head_dim=s.head_dim, d_ff=s.d_ff,
-            vocab_size=s.vocab, rope_theta=float(self.raw["rope_theta"]),
-            norm_eps=float(self.raw["rms_norm_eps"]),
-            tie_embeddings=s.tied, num_experts=s.experts, top_k=s.top_k,
-            moe_dense_residual_ff=s.dense_residual_ff,
-            dtype=self.dtype)
+        return self.arch.port_config(self.raw, self.dtype)
 
 
 @dataclasses.dataclass(frozen=True)

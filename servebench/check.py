@@ -1,36 +1,36 @@
 """How ``correct`` is decided, once the window has closed.
 
 A sample of the requests the window finished, drawn from the seed, with
-the longest of them (prompt and output) in it, and one whose prefill rode
-on a decode batch where there was one, up to ``sample_tokens`` served
-tokens in 3 requests or more (or ``sample_requests``). For each, the reference runs once
-over the prompt and the tokens the port served (the prompt's token ids
-worked out again as the port draws them: ``np.random.default_rng(rid)``
-over the vocabulary), in f32. A served token's gap is the reference's best
-logit at its position minus the reference's logit of the served token;
-``widest_gap``, the largest over the sample, is compared with the cell's
-limit. The port samples greedily, so a sound run's gaps are rounding: a
-bf16 model's argmax may differ where the reference's two best logits lie
-close. In a MoE layer rounding can also flip a route where the router's
-k-th and (k+1)-th logits lie within it, and a flipped route moves a
-token's logits by far more than rounding does: the gap is then taken over
-the positions whose every routing margin in the reference is at least the
-cell's ``route_margin``, and the share left out is held to
-``left_out_share``. A finished request must also have been served exactly
-its output length (``tokens_missing``).
+the longest of them (prompt and output) in it, and one whose prefill
+rode on a decode batch where there was one, up to ``sample_tokens``
+served tokens in 3 requests or more (or ``sample_requests``). For each,
+the reference runs once over the prompt and the tokens the port served
+(the prompt's token ids worked out again as the port draws them:
+``np.random.default_rng(rid)`` over the vocabulary), in f32. A served
+token's gap is the reference's best logit at its position minus the
+reference's logit of the served token; ``widest_gap``, the largest over
+the sample, is compared with the cell's limit. The port samples
+greedily, so a sound run's gaps are rounding: a bf16 model's argmax may
+differ where the reference's two best logits lie close. In a MoE layer
+rounding can also flip a route where the router's k-th and (k+1)-th
+logits lie within it, and a flipped route moves a token's logits by far
+more than rounding does: the gap is then taken over the positions whose
+every routing margin in the reference is at least the cell's
+``route_margin``, and the share left out is held to ``left_out_share``.
+A finished request must also have been served exactly its output length
+(``tokens_missing``).
 
-The control (``control=True``, run by ``servebench/calibrate.py``, not by
-the benchmark's runs): the same reference computed in e4m3
-(``reference.model``), whose argmax at each position is judged by the f32
-reference's gap in the same way.
+The reference is the configuration's architecture's
+(``servebench/reference/<arch>.py``). The control (``control=True``, run
+by ``servebench/calibrate.py``, not by the benchmark's runs): the same
+reference computed in e4m3, whose argmax at each position is judged by
+the f32 reference's gap in the same way.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
-
-from servebench.reference import model as ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,42 +92,47 @@ def sample(win, port, cell, seed: int) -> list:
 MARGINS = (0.0, 0.005, 0.01, 0.02, 0.03, 0.05)   # margins calibrate shows
 
 
-def gaps(weights: dict, arch: ref.Arch, items: list, device,
+def gaps(weights: dict, config, items: list, device,
          route_margin: float = 0.0, control: bool = False) -> dict:
     """``widest_gap``: the widest gap of the served tokens over ``items``,
-    at the positions whose routes the reference does not find near a tie:
-    where every MoE layer's routing margin (its k-th router logit less its
-    (k+1)-th) is at least ``route_margin`` (every position of a dense
-    model); ``left_out``, the positions that are not. With ``control``,
-    also the e4m3 reference's (``control_widest_gap``), and both at each
-    of ``MARGINS``."""
+    by the reference of ``config``'s architecture, at the positions whose
+    routes the reference does not find near a tie: where every MoE layer's
+    routing margin (its k-th router logit less its (k+1)-th) is at least
+    ``route_margin`` (every position, where the reference returns no
+    margins); ``left_out``, the positions that are not. With ``control``,
+    also the e4m3 reference's (``control_widest_gap``), and where there
+    are margins, both at each of ``MARGINS``."""
     import torch
+    ref = config.reference
+    sizes = ref.arch(config.raw)
+    vocab = config.arch.vocab(config.raw)
     seqs, firsts = [], []
     for it in items:
-        p = prompt_ids(it.rid, it.prompt, arch.vocab)
+        p = prompt_ids(it.rid, it.prompt, vocab)
         toks = np.concatenate([p, np.asarray(it.served[:-1], np.int64)])
         seqs.append(torch.as_tensor(toks, device=device))
         firsts.append(it.prompt - 1)
     out = {"tokens_compared": sum(len(it.served) for it in items)}
     with torch.no_grad():
         margins: list = []
-        exact = ref.logits(weights, arch, seqs, firsts, "f32",
+        exact = ref.logits(weights, sizes, seqs, firsts, "f32",
                            margins=margins)
         best = [x.max(dim=-1).values for x in exact]
         runs = [("", [torch.as_tensor(list(it.served), device=device)
                       for it in items])]
         if control:
-            low = ref.logits(weights, arch, seqs, firsts, "e4m3")
+            low = ref.logits(weights, sizes, seqs, firsts, "e4m3")
             runs.append(("control_", [x.argmax(dim=-1) for x in low]))
-        margin = torch.cat(margins)
-        keep = margin >= route_margin
-        out["left_out"] = int((~keep).sum())
+        margin = torch.cat(margins) if margins else None
+        keep = None if margin is None else margin >= route_margin
+        out["left_out"] = 0 if keep is None else int((~keep).sum())
         for prefix, tokens in runs:
             g = torch.cat([b - x.gather(1, t[:, None])[:, 0]
                            for x, b, t in zip(exact, best, tokens)])
-            out[prefix + "widest_gap"] = float(g[keep].max()) \
-                if keep.any() else -1.0
-            if control and arch.experts:
+            kept = g if keep is None else g[keep]
+            out[prefix + "widest_gap"] = float(kept.max()) \
+                if kept.numel() else -1.0
+            if control and margin is not None:
                 for m in MARGINS:
                     k = margin >= m
                     out[f"{prefix}widest_gap_margin_{m}"] = \

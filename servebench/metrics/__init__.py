@@ -1,9 +1,11 @@
 """Per-layer metrics, one reader a file: ``<metric name>.py`` with
-``read(run) -> float | None``, found by the metric's name. ``run`` has the
-``window`` (``servebench.serve.Window``), the traced sub-window's
-``profile`` (``servebench.trace.Profile``) and the configuration's
-``shape``. A reader that finds nothing to read returns None, and the
-metric is left out of the run's line."""
+``read(run) -> float | None``, found by the metric's name. ``run`` has
+the ``window`` (``servebench.serve.Window``), the traced sub-window's
+``profile`` (``servebench.trace.Profile``, whose ``calls`` are the
+architecture's ``count``s), the ``cell`` and its configuration's
+``shape``. ``roofline`` reads the calls of one kind. A reader that finds
+nothing to read returns None, and the metric is left out of the run's
+line."""
 from __future__ import annotations
 
 import importlib.util

@@ -1,11 +1,13 @@
 """The whole step's share of the card's peak, in %: the model FLOPs of the
-iterations in the traced sub-window (``servebench.cost``: 2 x the
-parameters a token multiplies by, the routed experts only for a MoE, plus
-attention over its causal context, plus the unembedding of each token that
-yields one) over the seconds the card was busy in it (the union of its
-operations' intervals in the device trace) at 989 TFLOP/s. Padding, idle
-decode rows and the experts the routes do not pick are not counted; the
-time the card stands idle is ``device.idle_share``'s."""
+iterations in the traced sub-window (their ``step`` entries, counted by
+the configuration's architecture, ``servebench/archs/<arch>.py``; for
+``llama``: 2 x the parameters a token multiplies by, the routed experts
+only for a MoE, plus attention over its causal context, plus the
+unembedding of each token that yields one) over the seconds the card was
+busy in it (the union of its operations' intervals in the device trace)
+at 989 TFLOP/s. Padding, idle decode rows and the experts the routes do
+not pick are not counted; the time the card stands idle is
+``device.idle_share``'s."""
 
 from servebench import cost
 

@@ -1,5 +1,6 @@
-"""The plain reference: the served models' forward pass in f32 with plain
-torch operations, one layer at a time over a few whole sequences.
+"""The plain reference of the ``llama`` architecture (``servebench/archs``):
+the forward pass in f32 with plain torch operations, one layer at a time
+over a few whole sequences.
 
 It imports nothing of the port. It reads the benchmark's weights (the
 port's parameter tree, ``servebench/weights.py``) and casts each matrix to
@@ -47,6 +48,26 @@ class Arch:
     experts: int = 0
     top_k: int = 0
     dense_residual_ff: int = 0
+
+
+def arch(raw: dict) -> Arch:
+    """The sizes from the published ``config.json`` keys: ``head_dim``
+    hidden_size / heads where the config gives none; the dense residual
+    MLP beside a MoE layer (``parallel_attn_mlp_res``) as wide as its own
+    key, ``residual_mlp_ffn_dim``."""
+    return Arch(
+        layers=raw["num_hidden_layers"], d_model=raw["hidden_size"],
+        heads=raw["num_attention_heads"],
+        kv_heads=raw["num_key_value_heads"],
+        head_dim=raw.get("head_dim", raw["hidden_size"]
+                         // raw["num_attention_heads"]),
+        d_ff=raw["intermediate_size"], vocab=raw["vocab_size"],
+        rope_theta=float(raw["rope_theta"]),
+        norm_eps=float(raw["rms_norm_eps"]),
+        experts=raw.get("num_local_experts", 0),
+        top_k=raw.get("num_experts_per_tok", 0),
+        dense_residual_ff=raw["residual_mlp_ffn_dim"]
+        if raw.get("parallel_attn_mlp_res") else 0)
 
 
 def _round_e4m3(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -136,20 +157,18 @@ def _moe(ops: _Ops, p: dict, layer: int, x: torch.Tensor,
 
 
 def logits(params: dict, arch: Arch, seqs: list, firsts: list,
-           precision: str = "f32", emb_scale: Optional[float] = None,
-           margins: Optional[list] = None) -> list:
+           precision: str = "f32", margins: Optional[list] = None) -> list:
     """For each token sequence (1-D int64 on the weights' device) the f32
-    logits (n, vocab) at positions ``firsts[i]`` .. end. ``emb_scale``: the
-    factor the port multiplies embeddings by (sqrt(d_model) rounded to
-    bf16 unless given). ``margins``, if given, receives for each sequence
-    the smallest routing margin over the MoE layers at those positions
-    (infinite for a dense model)."""
+    logits (n, vocab) at positions ``firsts[i]`` .. end; embeddings scaled
+    by sqrt(d_model) rounded to bf16, as the port does. ``margins``, if
+    given, receives for each sequence of a MoE model the smallest routing
+    margin over its MoE layers at those positions; a dense model routes
+    nothing and adds none."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ops = _Ops(precision)
-    if emb_scale is None:
-        emb_scale = float(torch.tensor(math.sqrt(arch.d_model),
-                                       dtype=torch.bfloat16))
+    emb_scale = float(torch.tensor(math.sqrt(arch.d_model),
+                                   dtype=torch.bfloat16))
     emb = params["embed"]
     h = [emb["table"][s].float() * emb_scale for s in seqs]
     low = [torch.full((len(s),), float("inf"), device=s.device) for s in seqs]
@@ -185,7 +204,7 @@ def logits(params: dict, arch: Arch, seqs: list, firsts: list,
         del wq, wk, wv, wo
         if mlp is not None:
             del wg, wu, wd
-    if margins is not None:
+    if margins is not None and arch.experts:
         margins.extend(m[f:] for m, f in zip(low, firsts))
     table = ops.weight(emb.get("unembed", emb["table"]).t())
     fn = params["final_norm"]["scale"]

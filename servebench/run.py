@@ -103,8 +103,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         parts["compiled"] = not all(lib.path.exists() for lib in libs)
         build.build_all(libs)
         t, parts["kernels_s"] = time.time(), time.time() - t
-    shape = cell.config.shape()
-    params = weights.make(shape, seed, device, cell.config.dtype)
+    params = weights.make(cell.config.layout(), seed, device)
     if device.type == "cuda":
         torch.cuda.synchronize()
     t, parts["weights_s"] = time.time(), time.time() - t
@@ -135,8 +134,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     profile = tracer.result if tracer is not None else None
     layer = {}
     if trace:
-        run = types.SimpleNamespace(window=win, shape=shape, cell=cell,
-                                    profile=profile)
+        run = types.SimpleNamespace(window=win, shape=cell.config.shape(),
+                                    cell=cell, profile=profile)
         for name, _ in cell_metrics(load_bench(), cell.name, True):
             value = reader(name)(run)
             if value is not None:
@@ -148,7 +147,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     port.free()
     gc.collect()
     good = [it for it in items if len(it.served) == it.output]
-    found = check.gaps(params, cell.config.arch(), good, device,
+    found = check.gaps(params, cell.config, good, device,
                        route_margin=cell.correct.get("route_margin", 0.0)) \
         if good else {"widest_gap": -1.0, "tokens_compared": 0,
                       "left_out": 0}

@@ -24,7 +24,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from servebench import cost, stats, traffic
+from servebench import stats, traffic
 
 SLICE_S = 0.05
 
@@ -123,18 +123,22 @@ class Port:
 class Recorder:
     """The scheduler's backend: the port's ``RealTorchBackend``, timed at
     this seam. With ``record``, each iteration's kernel calls and model
-    FLOPs are worked out from its plan and the executor's slots."""
+    FLOPs are worked out from its plan and the executor's slots by the
+    configuration's architecture (its ``count``)."""
 
-    def __init__(self, inner, execs, shape: cost.Shape, region: Callable,
+    def __init__(self, inner, execs, config, region: Callable,
                  record: bool = False):
-        self.inner, self.execs, self.shape = inner, execs, shape
+        self.inner, self.execs = inner, execs
+        self.shape, self.count = config.shape(), config.arch.count
         self.region, self.record = region, record
         self.iter_wall = 0.0
         self.count_wall = 0.0         # the benchmark's own counting
         self.iterations = 0
+        self.with_prefill = 0         # iterations with a prefill part
+        self.with_decode = 0          # iterations with decoding rows
         self.ridden: set = set()      # rids with a chunk on a decode batch
-        # (kind, flops, bytes): a kernel call of one layer ("prefill",
-        # "decode") or an iteration's model FLOPs ("step")
+        # (kind, flops, bytes): a kernel call of one layer, or an
+        # iteration's model FLOPs ("step")
         self.calls: list = []
 
     def run_iteration(self, worker, plan) -> float:
@@ -147,6 +151,8 @@ class Recorder:
             out = self.inner.run_iteration(worker, plan)
         self.iter_wall += time.perf_counter() - t0
         self.iterations += 1
+        self.with_prefill += bool(parts)
+        self.with_decode += bool(plan.decode_reqs)
         if self.record:
             t1 = time.perf_counter()
             self._count(worker.wid, plan, parts)
@@ -154,30 +160,17 @@ class Recorder:
         return out
 
     def _count(self, wid: int, plan, parts) -> None:
-        """The work the iteration's requests need: each prefill part's
-        queries, one kernel call a bucket as the executor groups them, and
-        the decoding rows' keys (the executor's slot lengths after the
-        step, the new key included)."""
-        s, e = self.shape, self.execs.execs[wid]
-        flops = 0.0
-        groups: dict = {}
-        for r, start, take in parts:
-            groups.setdefault(e.kernels.bucket_for(take), []).append(
-                (start, take))
-            flops += cost.chunk_flops(s, start, take,
-                                      start + take >= r.prompt_len)
-        for rows in groups.values():
-            f, b = cost.prefill_call(s, rows)
-            self.calls += [("prefill", f, b)] * s.layers
-        if plan.decode_reqs:
-            lengths = [int(e.lengths[e.slot_of[r.rid]])
-                       for r in plan.decode_reqs]
-            flops += sum(cost.token_flops(s, float(n), True)
-                         for n in lengths)
-            cols = e.max_len // np.gcd(e.max_len, 64)
-            f, b = cost.decode_call(s, lengths, int(cols))
-            self.calls += [("decode", f, b)] * s.layers
-        self.calls.append(("step", flops, 0.0))
+        """The work the iteration's requests need: each prefill part with
+        the bucket the executor groups it in (one kernel call a bucket),
+        and the decoding rows' lengths (the executor's slot lengths after
+        the step, the new key included)."""
+        e = self.execs.execs[wid]
+        parts = [(e.kernels.bucket_for(take), start, take,
+                  start + take >= r.prompt_len) for r, start, take in parts]
+        lengths = [int(e.lengths[e.slot_of[r.rid]])
+                   for r in plan.decode_reqs]
+        cols = int(e.max_len // np.gcd(e.max_len, 64))
+        self.calls += self.count(self.shape, parts, lengths, cols)
 
     def on_finish(self, req) -> None:
         self.inner.on_finish(req)
@@ -245,8 +238,7 @@ def run_window(port: Port, cell, arrivals: list, seconds: float,
     sim, _ = build_cluster(port.cfg, cell.policy, n_workers=cell.workers,
                            worker_spec=WorkerSpec(tp=1, hw=hw))
     backend = port.execs.as_backend(clock="wall")
-    rec = Recorder(backend, port.execs, cell.config.shape(), region,
-                   record=record)
+    rec = Recorder(backend, port.execs, cell.config, region, record=record)
     sim.sched.backend = rec
 
     def make(a: traffic.Arrival):

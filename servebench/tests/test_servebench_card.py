@@ -24,7 +24,7 @@ def test_control_fails_and_the_port_passes(card, name):
     build.build_all([chunked_prefill.LIB, paged_attention.LIB])
     c = Cell.load(name)
     seed = 424242
-    params = weights.make(c.config.shape(), seed, card, c.config.dtype)
+    params = weights.make(c.config.layout(), seed, card)
     port = serve.Port(c, params, card)
     port.warm()
     arrivals = traffic.generate(c.mix, seed, c.rate,
@@ -34,7 +34,7 @@ def test_control_fails_and_the_port_passes(card, name):
     del win
     port.free()
     try:
-        got = check.gaps(params, c.config.arch(), items, card,
+        got = check.gaps(params, c.config, items, card,
                          route_margin=c.correct.get("route_margin", 0.0),
                          control=True)
     finally:

@@ -75,7 +75,7 @@ def test_window_asks_only_for_warmed_steps(monkeypatch):
         asked.add(key)
         return real(self, params, cache, key, flat)
     monkeypatch.setattr(ExecutorKernels, "step", spy)
-    params = weights.make(c.config.shape(), 1, "cpu", c.config.dtype)
+    params = weights.make(c.config.layout(), 1, "cpu")
     port = serve.Port(c, params, "cpu")
     warmed = set(port.keys())
     asked.clear()
@@ -91,7 +91,7 @@ def test_recorded_work_is_the_requests_own():
     iteration's model FLOPs are counted once."""
     c = cell()
     s = c.config.shape()
-    params = weights.make(s, 2, "cpu", c.config.dtype)
+    params = weights.make(c.config.layout(), 2, "cpu")
     port = serve.Port(c, params, "cpu")
     arrivals = traffic.generate(c.mix, 2, 2.0, 4.0)
     win = serve.run_window(port, c, arrivals, 60.0, record=True)
@@ -127,13 +127,13 @@ def test_control_reads_far_above_the_port_in_bf16():
     widest gap is several times the port's (the dense model: at these
     widths a MoE's bf16 routes flip as often as its e4m3 ones do)."""
     c = cell(DENSE, "bfloat16")
-    params = weights.make(c.config.shape(), 9, "cpu", c.config.dtype)
+    params = weights.make(c.config.layout(), 9, "cpu")
     port = serve.Port(c, params, "cpu")
     port.warm()
     arrivals = traffic.generate(c.mix, 9, c.rate, 40)
     win = serve.run_window(port, c, arrivals, 5.0)
     items = check.sample(win, port, c, 9)
-    got = check.gaps(params, c.config.arch(), items, "cpu", control=True)
+    got = check.gaps(params, c.config, items, "cpu", control=True)
     assert got["control_widest_gap"] > 3 * got["widest_gap"]
 
 

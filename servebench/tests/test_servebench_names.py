@@ -31,6 +31,7 @@ def test_config_loads_by_name(c):
     assert NAME.match(c["name"])
     cfg = Config.load(c["name"])
     assert cfg.name == c["name"]
+    assert cfg.arch.vocab(cfg.raw) > 0 and cfg.reference.arch(cfg.raw)
     assert Path(c["file"]) == Path("servebench/configs") / f"{c['name']}.json"
     assert cfg.raw["reduced"] == c["reduced"]
     assert cfg.raw["source"] == c["source"]

@@ -23,6 +23,8 @@ def test_harness_modules_load_no_jax():
     code = ("import sys; sys.path[:0] = ['src', '.'];"
             "import servebench.run, servebench.serve, servebench.check,"
             "servebench.calibrate, servebench.trace, servebench.cells;"
+            "from servebench import archs;"
+            "[(archs.harness(n), archs.reference(n)) for n in archs.names()];"
             "import repro_torch.serving.executor, repro_torch.serving.simulator;"
             "from servebench.run import foreign_modules;"
             "assert foreign_modules() == [], foreign_modules()")

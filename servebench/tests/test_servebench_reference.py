@@ -1,79 +1,66 @@
-"""The plain reference and the benchmark's weights, held to the port's CPU
-path at small sizes (the only place a test imports the port beside the
-reference; the reference itself imports nothing of it)."""
-import ast
-from pathlib import Path
-
-import numpy as np
+"""Every architecture in ``servebench/archs``, at each of its ``TINY``
+configurations, held to the port's CPU path (``conformance.py``): its
+weights' tree is the port's, its reference is the port's prefill and
+cached decode and imports nothing of the port, and its counts add up per
+token. A later architecture is tested here without an edit."""
 import pytest
 import torch
 
-from servebench import weights
-from servebench.reference import model as ref
-from tiny import DENSE, MOE, cell
+import conformance
+from servebench import archs, weights
+from servebench.cells import Config
+from servebench.reference import llama as ref
+from tiny import MOE, cell
 
-REF = Path(ref.__file__)
-
-
-def _tree(t):
-    if isinstance(t, dict):
-        return {k: _tree(v) for k, v in t.items()}
-    return (tuple(t.shape), t.dtype)
+CASES = [(name, raw) for name in archs.names()
+         for raw in archs.harness(name).TINY]
+IDS = [f"{name}-{raw['name']}" for name, raw in CASES]
 
 
-@pytest.mark.parametrize("config", [DENSE, MOE, dict(DENSE, tie_word_embeddings=True)],
-                         ids=["dense", "moe", "tied"])
-def test_weights_have_the_ports_tree(config):
-    from repro_torch.models import transformer
-    from repro_torch.models.layers import MetaGenerator
-    c = cell(config, "bfloat16").config
-    ours = weights.make(c.shape(), 3, "cpu", c.dtype)
-    theirs = transformer.init_lm(MetaGenerator(), c.port_config())
-    assert _tree(ours) == _tree(theirs)
+def _config(raw):
+    return Config(dict(raw, torch_dtype="float32"))
+
+
+def _leaves(tree):
+    return [x for v in tree.values()
+            for x in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+@pytest.mark.parametrize("name, raw", CASES, ids=IDS)
+def test_weights_have_the_ports_tree(name, raw):
+    conformance.tree_is_the_ports(Config(dict(raw, torch_dtype="bfloat16")))
+
+
+@pytest.mark.parametrize("name, raw", CASES, ids=IDS)
+def test_reference_equals_the_ports_prefill_and_decode(name, raw):
+    conformance.reference_is_the_ports(_config(raw))
+
+
+@pytest.mark.parametrize("name", archs.names())
+def test_reference_imports_nothing_of_the_port(name):
+    conformance.reference_imports_nothing_of_the_port(archs.REFERENCE, name)
+
+
+@pytest.mark.parametrize("name, raw", CASES, ids=IDS)
+def test_step_flops_are_the_per_token_sum(name, raw):
+    conformance.count_is_per_token(_config(raw))
 
 
 def test_redraw_is_make():
     c = cell(MOE).config
-    a = weights.make(c.shape(), 11, "cpu", c.dtype)
-    b = weights.make(c.shape(), 12, "cpu", c.dtype)
-    weights.redraw(b, c.shape(), 11)
-    flat = lambda t: [x for v in t.values() for x in (flat(v) if isinstance(v, dict) else [v])]
-    assert all(torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
+    a = weights.make(c.layout(), 11, "cpu")
+    b = weights.make(c.layout(), 12, "cpu")
+    weights.redraw(b, c.layout(), 11)
+    assert all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
 
 
-def test_reference_imports_nothing_of_the_port():
-    names = set()
-    for node in ast.walk(ast.parse(REF.read_text())):
-        if isinstance(node, ast.Import):
-            names |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom):
-            names.add((node.module or "").split(".")[0])
-    assert names <= {"__future__", "dataclasses", "math", "typing", "torch"}
-
-
-@pytest.mark.parametrize("config", [DENSE, MOE], ids=["dense", "moe"])
-def test_reference_equals_the_ports_prefill_and_decode(config):
-    from repro_torch.models import api as model_api
-    c = cell(config).config
-    params = weights.make(c.shape(), 5, "cpu", c.dtype)
-    api = model_api.build(c.port_config())
-    prepared = api.prepare(params)
-    prompt = np.random.default_rng(1).integers(0, 512, 23)
-    cache = api.init_cache(1, 64, "cpu")
-    toks = torch.as_tensor(prompt[None], dtype=torch.int32)
-    logits, cache = api.prefill(prepared, cache, toks,
-                                torch.tensor([23], dtype=torch.int32))
-    port = [logits[0]]
-    served = [int(logits[0].argmax())]
-    for step in range(5):
-        logits, cache = api.decode(
-            prepared, cache, torch.tensor([served[-1]], dtype=torch.int32),
-            torch.tensor([23 + step], dtype=torch.int32))
-        port.append(logits[0])
-        served.append(int(logits[0].argmax()))
-    seq = torch.as_tensor(np.concatenate([prompt, served[:-1]]))
-    (got,) = ref.logits(params, c.arch(), [seq], [22])
-    assert torch.allclose(got, torch.stack(port), atol=1e-4, rtol=1e-4)
+def test_make_takes_a_configurations_shape():
+    """A configuration's shape in place of its tree draws the tree of the
+    architecture that defines the shape (``step_owners.py`` passes one)."""
+    c = cell(MOE, "bfloat16").config
+    a = weights.make(c.shape(), 4, "cpu", c.dtype)
+    b = weights.make(c.layout(), 4, "cpu")
+    assert all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
 
 
 def test_control_rounds_to_e4m3():

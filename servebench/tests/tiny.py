@@ -1,17 +1,10 @@
 """A cell small enough for the CPU: the benchmark's path end to end at
 tiny widths, for the tests."""
 from servebench import traffic
+from servebench.archs.llama import TINY
 from servebench.cells import Cell, Config
 
-DENSE = {"name": "tiny-dense", "num_hidden_layers": 2, "hidden_size": 64,
-         "num_attention_heads": 4, "num_key_value_heads": 2,
-         "intermediate_size": 128, "vocab_size": 512, "rope_theta": 10000.0,
-         "rms_norm_eps": 1e-6, "tie_word_embeddings": False,
-         "torch_dtype": "float32"}
-MOE = dict(DENSE, name="tiny-moe", num_local_experts=8,
-           num_experts_per_tok=2, parallel_attn_mlp_res=True,
-           residual_mlp_ffn_dim=64,
-           rms_norm_eps=1e-5)
+DENSE, MOE, TIED = TINY
 MIX = traffic.Mix("tiny", {"body_median": 40, "body_sigma": 0.6,
                            "tail_frac": 0.1, "tail_median": 90,
                            "tail_sigma": 0.2, "min": 8, "max": 96},

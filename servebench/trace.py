@@ -24,8 +24,9 @@ import dataclasses
 from collections import defaultdict
 
 START_SHARE = 0.35          # the sub-window opens at this share of the window
-TRACE_S = 2.0               # and lasts this long, and until it holds a call
-KINDS = {"prefill", "decode"}  # of each kind, or until the window ends
+TRACE_S = 2.0               # and lasts this long, and until it holds an
+                            # iteration with a prefill part and one with
+                            # decoding rows, or until the window ends
 SHORT_GAP_NS = 10_000       # idle gaps shorter than this are summed apart
 
 
@@ -50,6 +51,7 @@ class Tracer:
         self.start_at = None
         self.result = None
         self._marks = (0, 0)
+        self._seen = (0, 0)                # the recorder's iteration counts
         self._saved = []
 
     def warm(self) -> None:
@@ -95,8 +97,10 @@ class Tracer:
             self.prof.start()
             self.t_on = wall
             self._marks = (len(rec.calls), 0)
+            self._seen = (rec.with_prefill, rec.with_decode)
         elif self.prof is not None and wall >= self.t_on + TRACE_S \
-                and {c[0] for c in rec.calls[self._marks[0]:]} >= KINDS:
+                and rec.with_prefill > self._seen[0] \
+                and rec.with_decode > self._seen[1]:
             self._stop(wall, rec)
 
     def finish(self, wall: float, rec) -> None:

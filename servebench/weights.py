@@ -1,16 +1,16 @@
-"""The benchmark's weights: drawn on the device from the run's seed, in the
-port's parameter tree (``models/transformer.py``'s layout), in the types
-they are served in.
+"""The benchmark's weights: drawn on the device from the run's seed, into
+an architecture's tree (its ``layout``: ``servebench/archs/<name>.py``),
+in the types they are served in.
 
-One ``torch.Generator`` on the device fills each stacked tensor in place,
-in pieces of at most ``PIECE`` elements (a few calls per tensor). Both the
-port (``ClusterRealExecutors(params=...)``) and the reference read these
-same tensors; the reference casts them to f32 itself, one matrix at a
-time. Scales: N(0, 1/fan_in) for every projection (the fan-in of a stacked
-expert table is d_model, not the expert count), N(0, 0.02^2) for the
-embeddings, zeros for the norm weights (the port's ``1 + weight`` form).
+One ``torch.Generator`` on the device fills each tensor in place, in the
+tree's order, in pieces of at most ``PIECE`` elements (a few calls per
+tensor). Both the port (``ClusterRealExecutors(params=...)``) and the
+reference read these same tensors; the reference casts them to f32
+itself, one matrix at a time.
 """
 from __future__ import annotations
+
+import sys
 
 import torch
 
@@ -26,38 +26,6 @@ def _fill(t: torch.Tensor, gen: torch.Generator, std: float) -> torch.Tensor:
 
 def _normal(shape, std, dtype, gen):
     return _fill(torch.empty(shape, dtype=dtype, device=gen.device), gen, std)
-
-
-def layout(shape, dtype=torch.bfloat16) -> dict:
-    """Every leaf's (shape, dtype, std) in the port's tree; std 0 is a
-    zero-filled leaf."""
-    L, d, h, kv, hd = (shape.layers, shape.d_model, shape.heads,
-                       shape.kv_heads, shape.head_dim)
-    ff = shape.dense_residual_ff if shape.experts else shape.d_ff
-    f32 = torch.float32
-    blocks = {
-        "norm_attn": {"scale": ((L, d), dtype, 0.0)},
-        "attn": {"wq": ((L, d, h, hd), dtype, d ** -0.5),
-                 "wk": ((L, d, kv, hd), dtype, d ** -0.5),
-                 "wv": ((L, d, kv, hd), dtype, d ** -0.5),
-                 "wo": ((L, h, hd, d), dtype, (h * hd) ** -0.5)},
-        "norm_mlp": {"scale": ((L, d), dtype, 0.0)},
-    }
-    if ff:
-        blocks["mlp"] = {"w_gate": ((L, d, ff), dtype, d ** -0.5),
-                         "w_up": ((L, d, ff), dtype, d ** -0.5),
-                         "w_down": ((L, ff, d), dtype, ff ** -0.5)}
-    if shape.experts:
-        e, f = shape.experts, shape.d_ff
-        blocks["moe"] = {"router": ((L, d, e), f32, d ** -0.5),
-                         "w_gate": ((L, e, d, f), dtype, d ** -0.5),
-                         "w_up": ((L, e, d, f), dtype, d ** -0.5),
-                         "w_down": ((L, e, f, d), dtype, f ** -0.5)}
-    embed = {"table": ((shape.vocab, d), dtype, 0.02)}
-    if not shape.tied:
-        embed["unembed"] = ((shape.vocab, d), dtype, 0.02)
-    return {"embed": embed, "blocks": blocks,
-            "final_norm": {"scale": ((d,), dtype, 0.0)}}
 
 
 def _build(tree, gen):
@@ -77,18 +45,36 @@ def _refill(params, tree, gen):
             _fill(params[k], gen, v[2])
 
 
+def _leaves(params):
+    for v in params.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 def generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed % (1 << 63))
 
 
-def make(shape, seed: int, device, dtype=torch.bfloat16) -> dict:
-    """The weights of ``seed`` on ``device`` (``dtype``: the CPU tests'
-    f32 models)."""
-    return _build(layout(shape, dtype), generator(seed, device))
+def _tree(tree, dtype) -> dict:
+    """``tree`` itself, or for a configuration's shape (``Config.shape()``)
+    the layout of the architecture whose module defines the shape's class,
+    in ``dtype``."""
+    if isinstance(tree, dict):
+        return tree
+    arch = sys.modules[type(tree).__module__]
+    return arch.layout(tree, dtype or torch.bfloat16)
 
 
-def redraw(params: dict, shape, seed: int) -> None:
+def make(tree, seed: int, device, dtype=None) -> dict:
+    """The weights of ``seed`` on ``device``: every leaf of ``tree``
+    (``Config.layout()``), or of a shape's layout in ``dtype``."""
+    return _build(_tree(tree, dtype), generator(seed, device))
+
+
+def redraw(params: dict, tree, seed: int) -> None:
     """Draw ``seed``'s weights into ``params`` in place (the same storage,
     so graphs captured over it stay valid): equal to ``make``'s."""
-    dev = next(iter(params["embed"].values())).device
-    _refill(params, layout(shape), generator(seed, dev))
+    dev = next(_leaves(params)).device
+    _refill(params, _tree(tree, None), generator(seed, dev))
