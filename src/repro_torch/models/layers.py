@@ -109,6 +109,52 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    @property
+    def router_width(self) -> int:
+        """Experts the router scores: every expert of the model."""
+        return self.num_experts
+
+    @property
+    def expert_ids(self) -> range:
+        """Global ids of the experts whose tables the weights hold: all of
+        them (``ExpertShare`` holds a part)."""
+        return range(self.num_experts)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertShare(ModelConfig):
+    """A MoE model of which this card holds a contiguous share of the
+    experts: ``num_experts`` of them, global ids ``first_expert`` on, out
+    of the ``routed_experts`` the router scores (one rank of expert
+    parallelism, run without its exchange). ``num_experts`` counts the
+    held tables, so what prices the card's weights (``perf``'s cost model)
+    prices the share. Every token is routed over all ``routed_experts``;
+    the layer adds only the held experts' part, and that partial sum is
+    what the next layer takes in (``moe.apply_moe_reference``). A subclass,
+    so that ``ModelConfig``'s fields stay the JAX package's."""
+    routed_experts: int = 0
+    first_expert: int = 0
+
+    def __post_init__(self):
+        if not 0 < self.num_experts \
+                or self.first_expert < 0 \
+                or self.first_expert + self.num_experts > self.routed_experts:
+            raise ValueError(
+                f"{self.name}: experts {self.first_expert}.."
+                f"{self.first_expert + self.num_experts - 1} are not a share "
+                f"of {self.routed_experts}")
+        if self.expert_pad_to:
+            raise ValueError(f"{self.name}: a share of the experts is not "
+                             "padded (expert_pad_to is expert parallelism's)")
+
+    @property
+    def router_width(self) -> int:
+        return self.routed_experts
+
+    @property
+    def expert_ids(self) -> range:
+        return range(self.first_expert, self.first_expert + self.num_experts)
+
 
 # ---------------------------------------------------------------------------
 # initialisers (same distributions as the JAX package's)

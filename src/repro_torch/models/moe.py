@@ -44,6 +44,7 @@ on the CPU) and the module is deprecated.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -58,6 +59,7 @@ from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models import tp
 from repro_torch.models.layers import (ModelConfig, _activate, _dense_init,
                                       _normal)
+from repro_torch.tracing import span
 
 # Elements of one group's largest intermediate, (G, T, max(d, f)), at most
 # (32 Mi: 64 MB in bf16)
@@ -75,15 +77,33 @@ def physical_experts(cfg: ModelConfig) -> int:
     return math.ceil(cfg.num_experts / cfg.expert_pad_to) * cfg.expert_pad_to
 
 
+def whole_experts(cfg: ModelConfig) -> int:
+    """The leading size of the whole model's expert tables, which sets
+    their scales: ``physical_experts``, or for a share of the experts
+    (``layers.ExpertShare``) every expert the router scores, so that a
+    share draws from the whole's distributions."""
+    if cfg.router_width != cfg.num_experts:
+        return cfg.router_width
+    return physical_experts(cfg)
+
+
 def init_moe(gen: torch.Generator, cfg: ModelConfig, stack: int = 0):
     """The JAX ``init_moe``'s tree and distributions (``stack`` layers along
-    a new leading axis). The router stays f32 in a bf16 model."""
+    a new leading axis). The router stays f32 in a bf16 model, and scores
+    every expert (``cfg.router_width``); the expert tables are the held
+    experts' (``cfg.expert_ids``), scaled as the whole's
+    (``whole_experts``). A share's values are its own draws, not a slice
+    of the whole's: ``init_experts`` draws each expert alike in any
+    share."""
     e, d, f = physical_experts(cfg), cfg.d_model, cfg.d_ff
+    whole = whole_experts(cfg)
     p = {
-        "router": _dense_init(gen, (d, cfg.num_experts), torch.float32,
+        "router": _dense_init(gen, (d, cfg.router_width), torch.float32,
                               stack=stack),
-        "w_gate": _dense_init(gen, (e, d, f), cfg.dtype, stack=stack),
-        "w_up": _dense_init(gen, (e, d, f), cfg.dtype, stack=stack),
+        "w_gate": _dense_init(gen, (e, d, f), cfg.dtype, in_axis_size=whole,
+                              stack=stack),
+        "w_up": _dense_init(gen, (e, d, f), cfg.dtype, in_axis_size=whole,
+                            stack=stack),
         "w_down": _dense_init(gen, (e, f, d), cfg.dtype, in_axis_size=f,
                               stack=stack),
     }
@@ -101,14 +121,16 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, stack: int = 0):
 def init_experts(cfg: ModelConfig, experts: range, seed: int, device,
                  stack: int = 0) -> dict:
     """The expert tables (``w_gate``, ``w_up``, ``w_down``) of the experts
-    ``experts`` (global ids: a rank's own under expert parallelism), each
-    (layer, expert) drawn from its own generator seeded by (seed, layer,
-    expert), with ``init_moe``'s distributions (the whole table's scales:
-    1/sqrt(E_phys) for w_gate and w_up, as the JAX package takes shape[0]
-    for the fan-in, 1/sqrt(d_ff) for w_down). Any split of the experts
-    over ranks draws the same values, and a rank draws only its own.
-    ``stack`` > 0: that many layers along a new leading axis."""
-    e, d, f = physical_experts(cfg), cfg.d_model, cfg.d_ff
+    ``experts`` (global ids: a rank's own under expert parallelism, a
+    share's ``cfg.expert_ids``), each (layer, expert) drawn from its own
+    generator seeded by (seed, layer, expert), with ``init_moe``'s
+    distributions (the whole table's scales: 1/sqrt(E) for w_gate and
+    w_up, E the whole's ``whole_experts``, as the JAX package takes
+    shape[0] for the fan-in, 1/sqrt(d_ff) for w_down). Any split of the
+    experts over ranks or shares draws the same values, and each draws
+    only its own. ``stack`` > 0: that many layers along a new leading
+    axis."""
+    e, d, f = whole_experts(cfg), cfg.d_model, cfg.d_ff
     lead = (stack,) if stack else ()
     shapes = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
     scales = {"w_gate": e ** -0.5, "w_up": e ** -0.5, "w_down": f ** -0.5}
@@ -181,22 +203,93 @@ def _expert_sum(xt, w_gate, w_up, w_down, combine, n: int,
     return out
 
 
+def held_combine(gates: torch.Tensor, ids: torch.Tensor,
+                 held: range) -> torch.Tensor:
+    """Each token's combine weight for each expert of ``held`` (global
+    ids), from its top-k ``gates`` and ``ids`` (T, k): (T, len(held)) f32,
+    a gate where the token picked that expert and 0 where it did not."""
+    mine = held.start + torch.arange(len(held), device=ids.device)
+    return torch.where(ids[:, :, None] == mine[None, None, :],
+                       gates[:, :, None], 0.0).sum(dim=1)
+
+
+class Probe:
+    """What the single-card MoE layers of one step report while it is open
+    (``probe``): each layer's routes (ids (T, k), global) beside the experts
+    it holds, and with ``timed`` a pair of timing CUDA events around each
+    layer's expert products. The events are external, so a step captured
+    as a CUDA graph records them as nodes of the graph, and every replay
+    times the products on the card's clock."""
+
+    def __init__(self, timed: bool = False):
+        self.timed = timed
+        self.routes: list = []
+        self.events: list = []
+
+    def counts(self, live: torch.Tensor) -> torch.Tensor:
+        """Per layer, over the tokens where ``live`` (T,) holds: the
+        token-expert assignments to held experts, the held experts that at
+        least one of them went to, and all the tokens' assignments; (3 x
+        layers,) int32, computed on the device (nothing waits for it)."""
+        rows = []
+        for ids, held in self.routes:
+            local = ids - held.start
+            mine = (local >= 0) & (local < len(held)) & live[:, None]
+            slot = torch.where(mine, local, len(held)).reshape(-1)
+            hit = torch.zeros(len(held) + 1, dtype=torch.int32,
+                              device=ids.device).scatter_(0, slot, 1)
+            rows.append(torch.stack([mine.sum(), hit[:-1].sum(),
+                                     live.sum() * ids.shape[1]]))
+        return torch.stack(rows).to(torch.int32).reshape(-1)
+
+
+_PROBE: Optional[Probe] = None
+
+
+@contextlib.contextmanager
+def probe(timed: bool = False):
+    """Open a ``Probe`` for the single-card MoE layers run inside."""
+    global _PROBE
+    outer, _PROBE = _PROBE, Probe(timed)
+    try:
+        yield _PROBE
+    finally:
+        _PROBE = outer
+
+
 def apply_moe_reference(params, x: torch.Tensor,
                         cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, d). Dense dispatch, the JAX ``apply_moe_reference``'s
-    function: every token through every real expert (a padding expert's
-    combine weight is always 0, so it is skipped), the expert products in
-    ``x``'s dtype, the combine in f32, then the cast back and the shared
-    expert."""
+    function: every token routed over every expert the router scores, and
+    through every held real expert (a padding expert's combine weight is
+    always 0, so it is skipped), the expert products in ``x``'s dtype, the
+    combine in f32, then the cast back and the shared expert. Where the
+    weights hold a share of the experts (``layers.ExpertShare``) the
+    result is the held experts' part alone: what one rank of expert
+    parallelism adds before the exchange sums the ranks."""
     b, s, d = x.shape
-    e_phys = params["w_gate"].shape[0]
+    held = cfg.expert_ids
+    e_tables = params["w_gate"].shape[0]
     xt = x.reshape(b * s, d)
-    t = xt.shape[0]
-    gates, ids = route(params["router"], xt, cfg.top_k, e_phys)
-    combine = torch.zeros((t, e_phys), dtype=torch.float32, device=x.device)
-    combine.scatter_add_(1, ids, gates)                       # (T, E)
-    out = _expert_sum(xt, params["w_gate"], params["w_up"], params["w_down"],
-                      combine, cfg.num_experts, cfg)
+    with span("repro_torch.moe.route"):
+        e_route = e_tables if len(held) == cfg.router_width \
+            else cfg.router_width
+        gates, ids = route(params["router"], xt, cfg.top_k, e_route)
+        combine = held_combine(gates, ids, range(held.start,
+                                                 held.start + e_tables))
+    pr = _PROBE
+    if pr is not None:
+        pr.routes.append((ids, held))
+    with span("repro_torch.moe.experts"):
+        if pr is not None and pr.timed:
+            pair = tuple(torch.cuda.Event(enable_timing=True, external=True)
+                         for _ in range(2))
+            pair[0].record()
+        out = _expert_sum(xt, params["w_gate"], params["w_up"],
+                          params["w_down"], combine, len(held), cfg)
+        if pr is not None and pr.timed:
+            pair[1].record()
+            pr.events.append(pair)
     out = out.to(x.dtype).reshape(b, s, d)
     return out + _shared_expert(params, x, cfg)
 
@@ -402,10 +495,8 @@ def _moe_ep_allgather_local(p, x, *, cfg: ModelConfig, info: EPInfo):
 
     gates, ids = route(p["router"], x_all, cfg.top_k, e_pad)    # (T, k)
     my_dev = info.coord(info.ep_axes)
-    local_ids = my_dev * l_e + torch.arange(l_e, device=x.device)
     # combine weight of each token for each LOCAL expert: (T, l_e)
-    w = torch.where(ids[:, :, None] == local_ids[None, None, :],
-                    gates[:, :, None], 0.0).sum(dim=1)
+    w = held_combine(gates, ids, range(my_dev * l_e, (my_dev + 1) * l_e))
     real = min(l_e, max(0, cfg.num_experts - my_dev * l_e))
     contrib = _expert_sum(x_all, p["w_gate"], p["w_up"], p["w_down"], w,
                           real, cfg)                            # (T, d) f32
@@ -485,6 +576,10 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
               ep: Optional[EPInfo] = None) -> torch.Tensor:
     if ep is None:
         return apply_moe_reference(params, x, cfg)
+    if cfg.router_width != cfg.num_experts:
+        raise ValueError(f"apply_moe: {cfg.name} holds a share of the "
+                         "experts, which runs on one card without an "
+                         "exchange; expert parallelism splits the whole")
     if not isinstance(ep, EPInfo):
         raise TypeError(f"apply_moe: ep must be an EPInfo or None, got "
                         f"{type(ep).__name__}")

@@ -63,6 +63,7 @@ import torch
 
 from repro_torch.kernels.ops import LaunchTally
 from repro_torch.models import api as model_api
+from repro_torch.models import moe as model_moe
 from repro_torch.models.transformer import uses_ring
 from repro_torch.sched.backend import SlotExhausted
 from repro_torch.serving.engine import IterationPlan, Worker
@@ -200,14 +201,17 @@ def capture_cuda_graph(fn, pool):
 class _StepGraph:
     """One captured step: its static int32 inputs (one flat buffer, which
     each replay's inputs are copied into), the static buffer it writes the
-    sampled tokens into, and the launches each replay makes."""
+    sampled tokens (and a MoE model's counts) into, the launches each
+    replay makes, and the timing event pairs it records around each MoE
+    layer's expert products (``moe.Probe``)."""
 
-    def __init__(self, params, flat, replay, out, tally):
+    def __init__(self, params, flat, replay, out, tally, events=()):
         self.params = params        # the weights it reads, kept alive
         self.flat = flat
         self._replay = replay
         self.out = out
         self.tally = tally
+        self.events = list(events)
 
     def replay(self, flat: torch.Tensor) -> torch.Tensor:
         self.flat.copy_(flat)
@@ -221,10 +225,13 @@ class ExecutorKernels:
     executor in a cluster.
 
     A step is keyed as the JAX ``jit``s are: ``("prefill", bucket, rows)``
-    or ``("decode",)``. On a CUDA device ``step`` replays a
-    ``torch.cuda.CUDAGraph`` per (cache, key): a graph holds its cache's
-    addresses, and every worker owns a cache. A key is run eagerly once and
-    captured at its first use (``warmup`` captures (bucket, 1) for every
+    or ``("decode",)``. Its output is the sampled tokens, and after them,
+    for a model with single-card MoE layers, ``moe.Probe.counts`` over the
+    step's live tokens, in the same int32 buffer, so that they reach the
+    host in the iteration's one transfer. On a CUDA device ``step``
+    replays a ``torch.cuda.CUDAGraph`` per (cache, key): a graph holds its
+    cache's addresses, and every worker owns a cache. A key is run eagerly
+    once and captured at its first use (``warmup`` captures (bucket, 1) for every
     bucket and the decode step for each cache given, as the JAX warmup
     compiles them); ``prefill_traces`` / ``decode_traces`` count the
     captures as the JAX counters count traces, ``capture_seconds`` sums
@@ -266,22 +273,46 @@ class ExecutorKernels:
         return [(self.max_slots,), (self.max_slots,)]
 
     # ---------------------------------------------------------- entry points
-    def prefill_fn(self, params, cache, chunk, slots, starts, takes):
+    def prefill_fn(self, params, cache, chunk, slots, starts, takes,
+                   events=None):
         """Batched bucketed prefill: gathers the ``slots`` rows, runs one
         padded ``prefill_chunk`` on them, scatters the rows back, and
-        samples every row's next token on the device."""
+        samples every row's next token on the device. A row's live tokens
+        are its first ``takes``; the rows that repeat row 0 are not live."""
         idx = slots.long()
         view = {k: _bytes(a).index_select(1, idx).view(a.dtype)
                 for k, a in cache.items()}
-        logits, view = self.api.prefill_chunk(params, view, chunk, starts,
-                                              take=takes)
+        with model_moe.probe(timed=events is not None) as pr:
+            logits, view = self.api.prefill_chunk(params, view, chunk,
+                                                  starts, take=takes)
         for k, a in cache.items():
             _bytes(a).index_copy_(1, idx, _bytes(view[k]))
-        return logits.argmax(dim=-1).to(torch.int32), cache
+        toks = logits.argmax(dim=-1).to(torch.int32)
+        if not pr.routes:
+            return toks, cache
+        rows = torch.arange(chunk.shape[0], device=chunk.device)
+        first = (rows == 0) | (slots != slots[0])
+        cols = torch.arange(chunk.shape[1], device=chunk.device)
+        live = (cols[None, :] < takes[:, None]) & first[:, None]
+        return self._counted(toks, pr, live.reshape(-1), events), cache
 
-    def decode_fn(self, params, cache, tokens, lengths):
-        logits, cache = self.api.decode(params, cache, tokens, lengths)
-        return logits.argmax(dim=-1).to(torch.int32), cache
+    def decode_fn(self, params, cache, tokens, lengths, events=None):
+        """The decode step over every slot; its live rows are the slots
+        that hold a request (length above 0)."""
+        with model_moe.probe(timed=events is not None) as pr:
+            logits, cache = self.api.decode(params, cache, tokens, lengths)
+        toks = logits.argmax(dim=-1).to(torch.int32)
+        if not pr.routes:
+            return toks, cache
+        return self._counted(toks, pr, lengths > 0, events), cache
+
+    @staticmethod
+    def _counted(toks, pr, live, events):
+        """The tokens, then the MoE layers' counts over the live tokens;
+        the layers' event pairs into ``events``."""
+        if events is not None:
+            events.extend(pr.events)
+        return torch.cat([toks, pr.counts(live)])
 
     @staticmethod
     def copy_fn(dst, src, dslot: int, sslot: int):
@@ -290,10 +321,23 @@ class ExecutorKernels:
             _bytes(dst[k])[:, dslot].copy_(_bytes(src[k])[:, sslot])
         return dst
 
-    def _eager(self, params, cache, key, flat: torch.Tensor) -> torch.Tensor:
+    def _eager(self, params, cache, key, flat: torch.Tensor,
+               events=None) -> torch.Tensor:
         fn = self.prefill_fn if key[0] == "prefill" else self.decode_fn
-        toks, _ = fn(params, cache, *_split(flat, self.input_shapes(key)))
+        toks, _ = fn(params, cache, *_split(flat, self.input_shapes(key)),
+                     events=events)
         return toks
+
+    @staticmethod
+    def _gkey(params, cache, key) -> tuple:
+        return (id(params), cache["k"].data_ptr(), cache["v"].data_ptr(),
+                key)
+
+    def events(self, params, cache, key) -> list:
+        """The timing event pairs of the graph that runs ``key`` on
+        ``cache``, one a MoE layer (none where the step runs eagerly)."""
+        g = self._graphs.get(self._gkey(params, cache, key))
+        return g.events if g is not None else []
 
     def step(self, params, cache, key, flat: torch.Tensor) -> torch.Tensor:
         """One step of ``key`` on ``cache`` with its int32 inputs ``flat``
@@ -301,8 +345,7 @@ class ExecutorKernels:
         device a graph replay, captured at the key's first use."""
         if not self.graphed:
             return self._eager(params, cache, key, flat)
-        gkey = (id(params), cache["k"].data_ptr(), cache["v"].data_ptr(),
-                key)
+        gkey = self._gkey(params, cache, key)
         if gkey not in self._graphs:
             self._graphs[gkey] = self._capture(params, cache, key, flat)
         return self._graphs[gkey].replay(flat)
@@ -316,14 +359,18 @@ class ExecutorKernels:
         outside the pool, whose memory another graph's replay may reuse as
         scratch: a graph's output in the pool could be overwritten before
         it is read. The eager run and the replays write the same K/V rows,
-        so a capture at first use changes nothing a step would not."""
+        so a capture at first use changes nothing a step would not. On a
+        card the captured run times its MoE layers' expert products
+        (``moe.Probe``)."""
         with span("repro_torch.executor.capture", key=key):
             static = flat.clone()
             out = self._eager(params, cache, key, static)
             t0 = time.perf_counter()
             tally = LaunchTally()
+            events = [] if self.device.type == "cuda" else None
             replay, _ = tally.record(lambda: capture_cuda_graph(
-                lambda: out.copy_(self._eager(params, cache, key, static)),
+                lambda: out.copy_(self._eager(params, cache, key, static,
+                                              events)),
                 self._pool))
             _sync(self.device)
             self.capture_seconds += time.perf_counter() - t0
@@ -331,7 +378,7 @@ class ExecutorKernels:
             self.prefill_traces += 1
         else:
             self.decode_traces += 1
-        return _StepGraph(params, static, replay, out, tally)
+        return _StepGraph(params, static, replay, out, tally, events or ())
 
     @property
     def captures(self) -> int:
@@ -390,6 +437,11 @@ class RealExecutor:
         self.prompts: dict[int, np.ndarray] = {}     # rid -> prompt tokens
         self.generated: dict[int, list[int]] = {}
         self.fast = bool(batched and self.api.prefill_chunk is not None)
+        # the last plan's MoE layers (fast path): each step's counts, a row
+        # (held assignments, held experts touched, all assignments) a
+        # layer, and the seconds its expert products took on the card
+        self.moe_counts: Optional[np.ndarray] = None
+        self.moe_expert_seconds: Optional[float] = None
         if self.fast and kernels is None:
             kernels = ExecutorKernels(self.api, max_slots, max_len,
                                       self.device)
@@ -516,6 +568,7 @@ class RealExecutor:
         """Execute one composed iteration (either regime), returning after
         the device is idle."""
         self.assign_slots(plan)
+        self.moe_counts = self.moe_expert_seconds = None
         if self.fast:
             self._run_plan_fast(plan)
             return
@@ -540,12 +593,18 @@ class RealExecutor:
                 tok_parts.append(self.kernels.step(self.params, self.cache,
                                                    key, flat[off:off + n]))
             off += n
+        sizes = [t.shape[0] for t in tok_parts]
         toks = torch.cat(tok_parts)
         # exactly one device->host transfer per iteration
         with span("repro_torch.executor.to_host"):
             host = _to_host(toks)
         with span("repro_torch.executor.scatter"):
-            self._scatter(pending, host)
+            self._scatter(pending, host, sizes)
+        pairs = [p for key, _ in calls
+                 for p in self.kernels.events(self.params, self.cache, key)]
+        if pairs:       # done: the transfer waited for the card
+            self.moe_expert_seconds = 1e-3 * sum(
+                a.elapsed_time(b) for a, b in pairs)
 
     def _prepare(self, plan: IterationPlan) -> tuple[list, list]:
         """Every host input of the iteration, before its one upload: the
@@ -599,21 +658,27 @@ class RealExecutor:
             pending.append(("decode", dpairs))
         return calls, pending
 
-    def _scatter(self, pending: list, host: np.ndarray) -> None:
+    def _scatter(self, pending: list, host: np.ndarray, sizes) -> None:
         """The sampled tokens into ``generated``, and each decoded slot's
-        length up by one."""
-        off = 0
-        for kind, data in pending:
+        length up by one; the entries each step's output has past its
+        tokens (``sizes``: each output's length) into ``moe_counts``."""
+        off, counts = 0, []
+        for (kind, data), size in zip(pending, sizes):
             if kind == "prefill":
                 for i, req in enumerate(data):
                     if req is not None:
                         self.generated[req.rid].append(int(host[off + i]))
-                off += len(data)
+                n = len(data)
             else:
                 for r, s in data:
                     self.generated[r.rid].append(int(host[off + s]))
                     self.lengths[s] += 1
-                off += self.max_slots
+                n = self.max_slots
+            if size > n:
+                counts.append(host[off + n:off + size].reshape(-1, 3))
+            off += size
+        if counts:
+            self.moe_counts = np.concatenate(counts).astype(np.int64)
 
 
 class ClusterRealExecutors:
@@ -720,7 +785,12 @@ class RealTorchBackend:
     measured durations. ``prefill_tokens`` counts the prompt tokens the
     plans prefilled (padding left out), and ``ridden_prefill_tokens`` those
     of them that rode on an iteration with decode requests: Tropical's
-    multiplexing at work.
+    multiplexing at work. For a model with single-card MoE layers on the
+    fast path, ``moe_counts`` keeps each iteration's counts (a row a step
+    and layer: held assignments, held experts touched, all assignments,
+    over the step's live tokens; ``moe.Probe.counts``) and
+    ``moe_expert_seconds`` sums the card time of the expert products
+    (on a card: the event pairs of each graph).
     """
 
     def __init__(self, execs: ClusterRealExecutors, clock: str = "wall"):
@@ -733,6 +803,8 @@ class RealTorchBackend:
         self.busy_seconds = 0.0
         self.prefill_tokens = 0
         self.ridden_prefill_tokens = 0
+        self.moe_counts: list = []
+        self.moe_expert_seconds = 0.0
 
     def run_iteration(self, worker: Worker, plan: IterationPlan) -> float:
         e = self.execs.execs[worker.wid]
@@ -751,6 +823,10 @@ class RealTorchBackend:
         tokens = sum(take for _, take in plan.prefill_parts)
         self.prefill_tokens += tokens
         self.ridden_prefill_tokens += tokens if mixed else 0
+        if e.moe_counts is not None:
+            self.moe_counts.append(e.moe_counts)
+        if e.moe_expert_seconds is not None:
+            self.moe_expert_seconds += e.moe_expert_seconds
         return measured if self.clock == "wall" else worker.plan_duration(plan)
 
     def on_finish(self, req) -> None:
