@@ -54,7 +54,13 @@ Phases (one line each, a non-zero exit on any failure):
             step's 16 rows and a prefill step's 16 x 512, held to
             kernels.ref (the norm within one unit in the last place, the
             rest bit for bit) and timed against it; rope_cache_write also
-            at the other families' heads (biases, D = 80, 256, 64)
+            at the other families' heads (biases, D = 80, 256, 64); and
+            the routed expert products at arctic's widths (32 held of 128,
+            top-2): a decode step of 64 slots, 30 of them live, and a
+            prefill of 2 x 256, held to kernels.ref (relative L2 within
+            2^-8, rows not live exactly 0) and timed against it, against
+            the dense dispatch over every held table (library) and against
+            the bound of the tables the routes touch
   model     full-width qwen2-1.5b (random weights from a seed): prefill_chunk
             then decode steps through the kernels and through the plain
             attention and pointwise ops, logits compared (stated tolerance
@@ -132,7 +138,7 @@ Phases (one line each, a non-zero exit on any failure):
             and wkv6 must show device time); profile_gemma2 the same for
             full-width gemma2-2b, profile_fp8 for qwen2-1.5b with the fp8
             (e4m3) cache, profile_moe for arctic-480b's 2 layers with the
-            expert matrix products' share of the device time against the
+            routed expert kernels' share of the device time against the
             bound of the experts the routes need; profile_zamba2 the same
             for zamba2-2.7b's eager steps (its family takes no graphs yet),
             with the SSD's share of the device time and the decode batch's
@@ -156,7 +162,8 @@ Phases (one line each, a non-zero exit on any failure):
             the fp8 (e4m3) cache, the config varied as the JAX
             launch/hillclimb.py varies it (the CLI has no flag for it)
   serve_moe  the same on arctic-480b at full width, 2 of its 35 layers
-            (varied as the fp8 phases vary the cache), the MoE main path
+            (varied as the fp8 phases vary the cache), the MoE main path:
+            the routed expert kernels' four passes launch, as many of each
   serve_vlm  the same on paligemma-3b, text only (the VLM main path)
   serve_zamba2  the same on zamba2-2.7b (the hybrid main path: both
             attention kernels' tensor-core bf16 instances at D = 80 and no
@@ -170,9 +177,10 @@ Phases (one line each, a non-zero exit on any failure):
             kernels are given window 4096 (eagerly or captured), on their
             tensor-core variants only, and every request finishes
   quickstart  the port's quickstart (src/repro_torch/examples/
-            quickstart.py) on the card for qwen2-1.5b, gemma2-2b and
-            rwkv6-7b at SMOKE size (f32): prefill, 8 decode steps, 3 AdamW
-            steps; the CUDA-core attention variants or both WKV kernels
+            quickstart.py) on the card for qwen2-1.5b, gemma2-2b,
+            rwkv6-7b, arctic-480b and kimi-k2-1t at SMOKE size (f32):
+            prefill, 8 decode steps, 3 AdamW steps; the CUDA-core attention
+            variants, both WKV kernels or the routed experts' f32 passes
             launch (counts zeroed just before each run), and the logits
             are held to the plain versions' on the same weights and tokens
   train     the training main path on full-width qwen2-1.5b (bf16, remat
@@ -301,7 +309,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.request import Request, SLOClass, SLOSpec  # noqa: E402
 from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.kernels import (build, chunked_prefill, fused,  # noqa: E402
-                                 ops, paged_attention, ref, wkv6)
+                                 moe_experts, ops, paged_attention, ref,
+                                 wkv6)
 from repro_torch.launch import dist as dist_launch  # noqa: E402
 from repro_torch.launch import dryrun, hloanalysis  # noqa: E402
 from repro_torch.launch import mesh as mesh_launch  # noqa: E402
@@ -377,7 +386,8 @@ ZAMBA2_HEADS = dict(hq=32, hkv=32, d=80)
 WHISPER_HEADS = dict(hq=16, hkv=16, d=64)
 # the serve phases' decode lengths at 8 slots (64..512, sum 2455)
 SERVE_LENGTHS = (300, 420, 96, 512, 280, 333, 64, 450)
-LIBS = (paged_attention.LIB, chunked_prefill.LIB, wkv6.LIB, fused.LIB)
+LIBS = (paged_attention.LIB, chunked_prefill.LIB, wkv6.LIB, fused.LIB,
+        moe_experts.LIB)
 
 
 def say(phase: str, **kv) -> None:
@@ -1102,11 +1112,15 @@ def phase_kernels(card: str) -> dict:
         _say_timed(r, card)
     for r in _fused_records(gen):
         _say_timed(r, card)
-    say("kernels", kernels="chunked_prefill,paged_attention,wkv6,fused",
+    for r in _moe_records(gen):
+        _say_timed(r, card)
+    say("kernels", kernels="chunked_prefill,paged_attention,wkv6,fused,"
+        "moe_experts",
         launches_so_far={"chunked_prefill": chunked_prefill.launches_by_variant,
                          "paged_attention": paged_attention.launches_by_variant,
                          "wkv6": wkv6.launches_by_variant,
-                         "fused": fused.launches_by_variant})
+                         "fused": fused.launches_by_variant,
+                         "moe_experts": moe_experts.launches_by_variant})
     return records
 
 
@@ -1235,6 +1249,75 @@ def _check_fused_heads(gen) -> None:
                       f"kernels: rope_cache_write {label} {b}x{s} "
                       f"{cache_dtype} differs")
     say("kernels", fused_heads_bit_equal=",".join(h[0] for h in FUSED_HEADS))
+
+
+# the routed expert products at arctic's widths (d_model 7168, d_ff 4864;
+# 32 held tables of the 128 the router scores, top-2): a decode step of 64
+# slots of which 30 hold a request (the cell's rate), and a prefill of 2
+# rows x 256, every position live; bf16, the model's scales
+MOE_WIDTHS = dict(d=7168, f=4864, router=128, held=32, k=2)
+MOE_TIMED = (("decode", 64, 30), ("prefill", 512, 512))
+# one unit of bf16 (2^-8) of the output's norm: the products' sums run in
+# another order than cuBLAS's and round to bf16 where the plain ops round
+MOE_REL_L2 = 2.0 ** -8
+
+
+def _moe_records(gen) -> list:
+    """The routed products (``moe_experts``) against their plain version
+    (``ref.moe_experts_ref``: the dense dispatch with the rows that are not
+    live zeroed) at ``MOE_TIMED``'s steps: checked (relative L2 within
+    ``MOE_REL_L2``, the rows that are not live exactly 0) and timed beside
+    the plain version, the dense dispatch the layer ran before
+    (``moe._expert_sum`` over every held table, the library yardstick) and
+    the bound of the tables the routes touch (or their products' FLOPs)."""
+    w, bf = MOE_WIDTHS, torch.bfloat16
+    d, f, held, k = w["d"], w["f"], w["held"], w["k"]
+    tabs = []
+    for shape, std in (((d, f), w["router"] ** -0.5),
+                       ((d, f), w["router"] ** -0.5), ((f, d), f ** -0.5)):
+        t = torch.empty((held,) + shape, dtype=bf, device=DEV)
+        for e in range(held):
+            t[e] = torch.randn(shape, generator=gen, device=DEV) * std
+        tabs.append(t)
+    cfg = dataclasses.replace(get_config(ARCTIC), num_experts=held)
+    group = moe.GROUP_ELEMENTS
+    out = []
+    for step, t, n_live in MOE_TIMED:
+        x = _rand(gen, (t, d), bf)
+        keys = torch.rand((t, w["router"]), generator=gen, device=DEV)
+        ids = keys.argsort(-1)[:, :k]
+        gates = torch.softmax(torch.randn((t, k), generator=gen,
+                                          device=DEV), -1)
+        live = torch.zeros(t, dtype=torch.bool, device=DEV)
+        live[torch.randperm(t, generator=gen, device=DEV)[:n_live]] = True
+        args = (x, *tabs, gates, ids, live, 0)
+        routed = (*args, w["router"], "silu", group)
+        plain = (*args, "silu", group)
+        got = moe_experts.moe_experts(*routed)
+        want = ref.moe_experts_ref(*plain)
+        counts = ref.moe_lists(ids.cpu(), live.cpu(), 0, held)[0]
+        touched, pairs = int((counts > 0).sum()), int(counts.sum())
+        rel = ((got[live].float() - want[live].float()).norm()
+               / want[live].float().norm()).item()
+        check(rel <= MOE_REL_L2 and not got[~live].any(),
+              f"kernels: moe_experts {step} relative L2 {rel:.2e}, or a row "
+              "that is not live took a value")
+        combine = ref.held_combine(gates, ids, range(held))
+        out.append(dict(
+            name=f"moe_experts_{step}",
+            shape=f"T={t} live={n_live} d={d} f={f} top-{k} of "
+                  f"{w['router']}, {held} held, {touched} touched, bf16",
+            max_abs_err=rel,
+            ms=time_ms(lambda: moe_experts.moe_experts(*routed)),
+            plain_ms=time_ms(lambda: ref.moe_experts_ref(*plain)),
+            library_ms=time_ms(lambda: moe._expert_sum(
+                x, *tabs, combine, held, cfg).to(bf)),
+            library_note="dense dispatch: cuBLAS batched products over "
+                         "every held table",
+            **_bound(2 * (3 * touched * d * f + 2 * t * d),
+                     6 * pairs * d * f, bf)))
+    del tabs
+    return out
 
 
 def _rope_at(starts, s: int, hd: int):
@@ -1392,7 +1475,8 @@ class _PlainKernels:
     versions on the card, and so does the pointwise work between the
     dense block's GEMMs (``layers.fuses`` says no to every tensor, so the
     residual adds, norms, rope, cache writes and gated activations are
-    the plain ops at the model's own shapes). A comparison only; the
+    the plain ops at the model's own shapes), and the MoE layers' experts
+    (``ref.moe_experts_ref``, the dense dispatch). A comparison only; the
     port's ops never do this. ``wkv`` is the plain WKV: by default the
     form the JAX model picks; ``scale`` multiplies every attention output
     (a nudge the size of a kernel's rounding)."""
@@ -1402,8 +1486,9 @@ class _PlainKernels:
 
     def __enter__(self):
         self.saved = (ops.paged_attention_op, ops.chunked_prefill_op,
-                      ops.wkv6_op, layers.fuses)
+                      ops.wkv6_op, layers.fuses, ops.moe_experts_op)
         layers.fuses = lambda *tensors: False
+        ops.moe_experts_op = lambda *a: ref.moe_experts_ref(*a[:8], *a[9:])
         x = self.scale
         ops.paged_attention_op = lambda *a, softcap=None, window=None: \
             ref.paged_attention_ref(*a, softcap=softcap, window=window) * x
@@ -1414,7 +1499,7 @@ class _PlainKernels:
 
     def __exit__(self, *exc):
         (ops.paged_attention_op, ops.chunked_prefill_op,
-         ops.wkv6_op, layers.fuses) = self.saved
+         ops.wkv6_op, layers.fuses, ops.moe_experts_op) = self.saved
 
 
 # the dense model phases: (arch, rows, prompt tokens, chunk, cache length,
@@ -2553,19 +2638,6 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _expert_gemm_ms(ops, cfg) -> float:
-    """Device ms of the expert matrix products, from host ops averaged by
-    input shape: the kernels ``aten::bmm`` launches itself (its own device
-    time: no copy its operands may need) where the second operand is an
-    expert stack (G, d, f) or (G, f, d), the only 3-D weights the model
-    multiplies by."""
-    stacks = ([cfg.d_model, cfg.d_ff], [cfg.d_ff, cfg.d_model])
-    return sum(_device_us(e) for e in ops
-               if e.key == "aten::bmm" and len(e.input_shapes) >= 2
-               and len(e.input_shapes[1]) == 3
-               and list(e.input_shapes[1][1:]) in stacks) / 1e3
-
-
 def _routed_bound(ids: list, cfg) -> dict:
     """The least time of the expert work the routes need, as if only the
     routed tokens went through their experts: each MoE call (one per layer
@@ -2647,9 +2719,9 @@ def phase_profile(card: str, arch: str = ARCH, phase: str = "profile",
     the iteration's host term (the cost model's ``t_fixed``). ``changes``
     vary the config (profile_fp8: the e4m3 cache; profile_moe: arctic's
     two layers). For an MoE model each eager iteration also reports the
-    device ms of its expert matrix products (host ops traced with their
-    shapes) and their share of the device time, beside the bound of the
-    experts its routes need alone and of the dense dispatch it runs.
+    device ms of its routed expert kernels (``moe_experts``) and their
+    share of the device time, beside the bound of the experts its routes
+    need alone and of the dense dispatch over every held table.
     Returns (label, plan, wall ms, device ms) per graphed iteration."""
     rows = []
     cfg = dataclasses.replace(get_config(arch), **(changes or {}))
@@ -2683,7 +2755,7 @@ def phase_profile(card: str, arch: str = ARCH, phase: str = "profile",
 
             moe_eager = cfg.is_moe and mode == "eager"
             with _Routes() as routes:
-                profiled_wall, kernels, ops = _profiled(once, moe_eager)
+                profiled_wall, kernels, _ = _profiled(once)
             wall = walls[mode, label]
             span = ev[0].elapsed_time(ev[1])
             dev = _device_ms(kernels)
@@ -2709,14 +2781,14 @@ def phase_profile(card: str, arch: str = ARCH, phase: str = "profile",
                 device_kernels=sum(e.count for e in by_name),
                 card=repr(card))
             if moe_eager:
-                experts = _expert_gemm_ms(ops, cfg)
+                experts = _device_ms(by_name, _named(moe_experts))
                 say(phase, iteration=repr(label), steps=mode,
-                    expert_gemm_ms=f"{experts:.3f}",
+                    expert_kernels_ms=f"{experts:.3f}",
                     expert_share=f"{experts / dev:.3f}",
                     **_routed_bound(routes.ids, cfg), card=repr(card))
-                check(0 < experts <= gemm, f"{phase}: expert matmul time "
-                      f"{experts:.3f} ms outside (0, GEMM {gemm:.3f} ms] in "
-                      f"{label!r}")
+                check(0 < experts <= dev, f"{phase}: routed expert kernels' "
+                      f"time {experts:.3f} ms outside (0, device "
+                      f"{dev:.3f} ms] in {label!r}")
             if mode == "eager":
                 for e in kernels[:4]:
                     say(phase, kernel=repr(e.key[:70]), count=e.count,
@@ -3247,8 +3319,16 @@ def phase_serve(card: str, phase: str, arch: str, kernels: dict,
         check(caches == {"float8_e4m3fn"}, f"{phase}: caches {caches}")
     say(phase, launches=launches, by_variant=variants,
         fused=dict(fused.launches_by_variant))
-    _check_fused_launches(phase, dataclasses.replace(get_config(arch),
-                                                     **changes))
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    forwards = _check_fused_launches(phase, cfg)
+    if "moe_experts" in variants:
+        # every MoE layer of every forward (a replay adds its capture's)
+        # through the four passes, a chunk of tokens each a pass
+        by = variants["moe_experts"]
+        check(len(set(by.values())) == 1
+              and by["lists"] >= forwards * cfg.num_layers,
+              f"{phase}: routed expert passes {by} over {forwards} forwards "
+              f"of {cfg.num_layers} MoE layers")
     check(row["n_total"] > 0 and row["n_finished"] == row["n_total"],
           f"{phase}: not every request finished")
     if "scenario" not in traffic:
@@ -3276,9 +3356,10 @@ def phase_serve(card: str, phase: str, arch: str, kernels: dict,
                        for v, n in by.items()}
 
 
-def _check_fused_launches(phase: str, cfg) -> None:
+def _check_fused_launches(phase: str, cfg) -> Optional[int]:
     """The fused passes a serve phase launched (zeroed with the other
-    counted kernels before the run). Every forward of a dense, MoE or VLM
+    counted kernels before the run), and the forwards they make (None
+    where they count none). Every forward of a dense, MoE or VLM
     model launches, a layer, its two norms (four with gemma2's
     post-norms), one attention pass and one gated activation (arctic's
     dense residual MLP; the experts keep the plain ops), then the final
@@ -3288,7 +3369,7 @@ def _check_fused_launches(phase: str, cfg) -> None:
     have launched. rwkv6 keeps its LayerNorms."""
     if cfg.use_layernorm or cfg.family not in ("dense", "moe", "vlm",
                                                "hybrid"):
-        return
+        return None
     by = dict(fused.launches_by_variant)
     rope_v = "rope_cache_write_e4m3" if cfg.kv_cache_quant \
         else "rope_cache_write"
@@ -3300,7 +3381,7 @@ def _check_fused_launches(phase: str, cfg) -> None:
           f"{phase}: fused launches {dict(fused.launches_by_variant)}: "
           f"the passes did not run on the main path, or another variant did")
     if cfg.family == "hybrid":
-        return
+        return None
     n, left = divmod(rope, cfg.num_layers)
     per_norms = (4 if cfg.use_post_norms else 2) * cfg.num_layers + 1
     per_gated = cfg.num_layers if cfg.mlp_gated and (
@@ -3311,17 +3392,21 @@ def _check_fused_launches(phase: str, cfg) -> None:
           f"{cfg.num_layers} attention passes and {per_gated} activations")
     say(phase, fused_forwards=n, fused_per_forward=per_norms
         + cfg.num_layers + per_gated)
+    return n
 
 
-QUICKSTART_ARCHS = (ARCH, GEMMA2, RWKV)
+QUICKSTART_ARCHS = (ARCH, GEMMA2, RWKV, ARCTIC, KIMI)
 # the kernels each quickstart must launch (SMOKE configs are f32: the
-# attention kernels' CUDA-core variants; rwkv6 both WKV kernels)
+# attention kernels' CUDA-core variants; rwkv6 both WKV kernels; the MoE
+# models the routed experts' f32 passes, at d_ff 96 (arctic) and 64 (kimi))
+_ATTENTION_F32 = {"chunked_prefill": ("cuda_core",),
+                  "paged_attention": ("cuda_core",)}
 QUICKSTART_KERNELS = {
-    ARCH: {"chunked_prefill": ("cuda_core",),
-           "paged_attention": ("cuda_core",)},
-    GEMMA2: {"chunked_prefill": ("cuda_core",),
-             "paged_attention": ("cuda_core",)},
+    ARCH: _ATTENTION_F32,
+    GEMMA2: _ATTENTION_F32,
     RWKV: {"wkv6": ("chunk", "decode")},
+    ARCTIC: _ATTENTION_F32 | {"moe_experts": tuple(moe_experts.KERNELS)},
+    KIMI: _ATTENTION_F32 | {"moe_experts": tuple(moe_experts.KERNELS)},
 }
 
 
@@ -4640,7 +4725,9 @@ def serve_table() -> tuple:
         ("serve_gemma2", GEMMA2, attention, tensor_cores),
         ("serve_fp8", ARCH, attention, tensor_cores_e4m3, fp8),
         ("serve_gemma2_fp8", GEMMA2, attention, tensor_cores_e4m3, fp8),
-        ("serve_moe", ARCTIC, attention, tensor_cores, MOE_CUTS[ARCTIC]),
+        ("serve_moe", ARCTIC, attention | {"moe_experts": moe_experts},
+         tensor_cores | {"moe_experts": tuple(moe_experts.KERNELS)},
+         MOE_CUTS[ARCTIC]),
         ("serve_vlm", PALIGEMMA, attention, tensor_cores),
         ("serve_zamba2", ZAMBA2, attention, tensor_cores),
         # gemma2 past its 4096-token window on the serve path: long-context

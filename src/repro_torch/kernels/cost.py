@@ -12,7 +12,9 @@ for a decode or a scan, and for the chunked form (T a multiple of 64,
 chunks of C = 64) 2·B·H·(2·C·D² + 2·C²·D) a chunk. Bytes are the op's
 inputs (for a decode, the K/V rows its table addresses) and its outputs,
 once each. The fused pointwise passes count no FLOPs (the dry-run counts
-dots only) and their bytes alike: for the cache write, the new rows.
+dots only) and their bytes alike: for the cache write, the new rows. The
+routed expert products count the dense dispatch the JAX reference runs:
+every token through every held expert, 6·T·E·d·f, every table read.
 
 A listener is any object with ``add_op(name, flops, nbytes, shapes)``;
 ``launch.hloanalysis.StepCost`` adds itself while it is on.
@@ -72,3 +74,12 @@ def pointwise_cost(reads, writes) -> tuple:
     """(0 FLOPs, bytes) of a fused pointwise pass: the tensors it reads and
     those it writes, once each (``None`` for an input not given)."""
     return 0.0, _nbytes(*(t for t in (*reads, *writes) if t is not None))
+
+
+def moe_experts_cost(x, w_gate, w_up, w_down) -> tuple:
+    """(FLOPs, bytes) of the dense dispatch over E held experts: 2·T·d·f
+    for each of the three products of every (token, expert), the tables
+    and the tokens in and out once each."""
+    t, d = x.shape
+    e, _, f = w_gate.shape
+    return 6.0 * t * e * d * f, _nbytes(w_gate, w_up, w_down) + 2 * _nbytes(x)

@@ -46,12 +46,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#ifndef M_SQRT2
-#define M_SQRT2 1.41421356237309504880
-#endif
-#ifndef M_2_SQRTPI
-#define M_2_SQRTPI 1.12837916709551257390
-#endif
+#include "activation.cuh"
 
 namespace {
 
@@ -305,17 +300,6 @@ cudaError_t dispatch_rope_cache(int kv_e4m3, const void* q, const void* k, const
 // gated activation
 // ---------------------------------------------------------------------------
 
-// ATen's CUDA SiLU and tanh-GELU, expression for expression.
-__device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  constexpr float kBeta = M_SQRT2 * M_2_SQRTPI * 0.5f;
-  constexpr float kKappa = 0.044715f;
-  const float x_cube = x * x * x;
-  const float inner = kBeta * (x + kKappa * x_cube);
-  return 0.5f * x * (1.0f + tanhf(inner));
-}
-
 template <typename T, int V, int kGelu>
 __global__ void gated_act_kernel(const T* __restrict__ g, const T* __restrict__ u,
                                  T* __restrict__ out, long long n) {
@@ -329,7 +313,7 @@ __global__ void gated_act_kernel(const T* __restrict__ g, const T* __restrict__ 
 #pragma unroll
     for (int e = 0; e < V; ++e) {
       const float x = Num<T>::to_f(a.v[e]);
-      const float act = round_to<T>(kGelu ? gelu_tanh(x) : silu(x));
+      const float act = round_to<T>(kGelu ? rt::gelu_tanh(x) : rt::silu(x));
       o.v[e] = Num<T>::from_f(__fmul_rn(act, Num<T>::to_f(b.v[e])));
     }
     store<T, V>(out + i * V, o);

@@ -1,4 +1,5 @@
-"""Dispatch for the kernels (attention, WKV6, the fused pointwise passes).
+"""Dispatch for the kernels (attention, WKV6, the fused pointwise passes,
+the routed expert products).
 
 Tensors on the CPU go to the plain versions in ``kernels.ref``; tensors on
 a CUDA device go to the Hopper kernels, which launch or raise. Nothing
@@ -9,9 +10,9 @@ autograd, so every op refuses, on both devices, inputs that require grad
 while grad mode is on: the training forwards compute attention with
 ``models.layers.attention_scores`` and WKV with ``models.rwkv6``'s
 ``wkv_chunked`` / ``wkv_scan``, as the JAX package trains through XLA,
-and the dense block's pointwise work with the plain ops of
+the dense block's pointwise work with the plain ops of
 ``kernels.ref``, which ``models.layers`` calls where the fused passes do
-not run.
+not run, and the experts with ``models.moe``'s dense dispatch.
 
 Every call, on any device, reports its dense count to the listeners of
 ``kernels.cost`` (nothing is done when there are none).
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (chunked_prefill, cost, fused,
+from repro_torch.kernels import (chunked_prefill, cost, fused, moe_experts,
                                  paged_attention, ref, wkv6)
 
 
@@ -156,9 +157,35 @@ def gated_act_op(g, u, kind: str):
     return fused.gated_act(g, u, kind)
 
 
+def moe_experts_op(x, w_gate, w_up, w_down, gates, ids, live, first: int,
+                   experts: int, activation: str, group_elements: int):
+    """A MoE layer's experts over the held tables (E of them, global ids
+    ``first`` on, of the ``experts`` the router picks among): each token's
+    sum over its held picks (``gates``, ``ids`` (T, k)) of gate x
+    expert(x), the products in x's dtype, the sum in f32, cast to x's
+    dtype; 0 for the rows ``live`` (T,) leaves out (None: every row). On
+    the card only the live tokens' picks run (``moe_experts``); the plain
+    version runs every token through every held expert in groups within
+    ``group_elements``."""
+    args = (x, w_gate, w_up, w_down, gates, ids) \
+        + (() if live is None else (live,))
+    _refuse_grad("moe_experts_op", *args)
+    kind = _device_kind("moe_experts_op", *args)
+    if cost.LISTENERS:
+        cost.report("moe_experts", x, w_gate,
+                    cost.moe_experts_cost(x, w_gate, w_up, w_down))
+    if kind == "meta":
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    if kind == "cpu":
+        return ref.moe_experts_ref(x, w_gate, w_up, w_down, gates, ids, live,
+                                   first, activation, group_elements)
+    return moe_experts.moe_experts(x, w_gate, w_up, w_down, gates, ids, live,
+                                   first, experts, activation, group_elements)
+
+
 # the wrapper modules that count their launches (``launches``,
 # ``launches_by_variant``)
-COUNTED = (chunked_prefill, paged_attention, wkv6, fused)
+COUNTED = (chunked_prefill, paged_attention, wkv6, fused, moe_experts)
 
 
 class LaunchTally:

@@ -10,7 +10,12 @@ recurrence the JAX model picks (``wkv6_ref``), among the three that
 (``kernels/fused.py``): the dense block's own plain ops, RMSNorm, the
 rotary embedding, the cache write and the gated activation, as the model
 layers compute them wherever the passes do not run (``models/layers.py``
-calls these). ``kernels.ops`` sends tensors that lie on the CPU here;
+calls these). The routed expert products (``kernels/moe_experts.py``): the
+dense dispatch of ``models/moe.py``, every token through every held expert
+in groups, the f32 combine with the rows that are not live zeroed (what the
+CPU runs for the op; ``models/moe.py`` runs ``expert_sum`` itself where a
+gradient is tracked or the tensors are DTensors).
+``kernels.ops`` sends tensors that lie on the CPU here;
 ``chip_smoke.py`` holds each Hopper kernel against these on the card.
 """
 from __future__ import annotations
@@ -186,3 +191,79 @@ def activate(x: torch.Tensor, kind: str) -> torch.Tensor:
 def gated_act_ref(g: torch.Tensor, u: torch.Tensor, kind: str) -> torch.Tensor:
     """``activate(g, kind) * u``, each op rounding to g's dtype."""
     return activate(g, kind) * u
+
+
+# ---------------------------------------------------------------------------
+# the experts of a mixture-of-experts layer: dense dispatch
+# ---------------------------------------------------------------------------
+
+
+def held_combine(gates: torch.Tensor, ids: torch.Tensor,
+                 held: range) -> torch.Tensor:
+    """Each token's combine weight for each expert of ``held`` (global
+    ids), from its top-k ``gates`` and ``ids`` (T, k): (T, len(held)) f32,
+    a gate where the token picked that expert and 0 where it did not."""
+    mine = held.start + torch.arange(len(held), device=ids.device)
+    return torch.where(ids[:, :, None] == mine[None, None, :],
+                       gates[:, :, None], 0.0).sum(dim=1)
+
+
+def expert_group(tokens: int, n: int, d: int, f: int, elements: int) -> int:
+    """Experts computed together for ``tokens`` tokens: as many of the
+    ``n`` as keep a group's (G, T, max(d, f)) intermediate within
+    ``elements``, at least one."""
+    return max(1, min(n, elements // max(1, tokens * max(d, f))))
+
+
+def expert_sum(xt, w_gate, w_up, w_down, combine, n: int, activation: str,
+               step: int) -> torch.Tensor:
+    """sum_e combine[:, e] * expert_e(xt) over the first ``n`` experts of
+    the tables, in f32: (T, d). The products run in ``xt``'s dtype, in
+    groups of ``step`` experts."""
+    t, d = xt.shape
+    out = torch.zeros((t, d), dtype=torch.float32, device=xt.device)
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        g = activate(torch.matmul(xt, w_gate[lo:hi]), activation)  # (G, T, f)
+        u = torch.matmul(xt, w_up[lo:hi])
+        y = torch.matmul(g * u, w_down[lo:hi])                # (G, T, d)
+        w = combine[:, lo:hi].t()[:, :, None]                 # (G, T, 1)
+        out += (y.float() * w).sum(dim=0)
+    return out
+
+
+def moe_lists(ids, live, first: int, held: int):
+    """The routed products' lists, plainly (``moe_experts.lists``): each
+    held expert's count and offset (held,), the tokens of the held picks
+    of the live rows in (expert, token) order, and each (token, j)'s place
+    in that order or -1 (T * k,); int32. ``live`` None: every row."""
+    t, k = ids.shape
+    local = ids.long() - first
+    mine = (local >= 0) & (local < held)
+    if live is not None:
+        mine &= live[:, None]
+    counts = torch.bincount(local[mine], minlength=held)
+    offsets = torch.cumsum(counts, 0) - counts
+    token = torch.arange(t, device=ids.device)[:, None].expand(t, k)
+    key = torch.where(mine, local * t + token, held * t).reshape(-1)
+    order = torch.argsort(key, stable=True)[:int(mine.sum())]
+    place = torch.full((t * k,), -1, dtype=torch.int32, device=ids.device)
+    place[order] = torch.arange(order.numel(), dtype=torch.int32,
+                                device=ids.device)
+    return (counts.int(), offsets.int(), token.reshape(-1)[order].int(),
+            place)
+
+
+def moe_experts_ref(x, w_gate, w_up, w_down, gates, ids, live, first: int,
+                    activation: str, group_elements: int) -> torch.Tensor:
+    """The routed products' plain version: ``expert_sum`` over the E held
+    tables (global ids ``first`` on), in groups within ``group_elements``,
+    with the combine of the rows ``live`` (T,) leaves out zeroed (None:
+    every row live), cast to x's dtype."""
+    (t, d), (n, _, f) = x.shape, w_gate.shape
+    combine = held_combine(gates, ids, range(first, first + n))
+    if live is not None:
+        combine = torch.where(live[:, None], combine, 0.0)
+    step = expert_group(t, n, d, f, group_elements)
+    return expert_sum(x, w_gate, w_up, w_down, combine, n, activation,
+                      step).to(x.dtype)

@@ -233,15 +233,20 @@ def unstack(tree) -> list:
 # ---------------------------------------------------------------------------
 
 
-def fuses(*tensors: torch.Tensor) -> bool:
-    """Whether the fused pointwise passes take these tensors: plain tensors
-    (not DTensors) on a CUDA device, with no gradient to track. The CPU,
-    the meta device, DTensors and the training forwards keep the plain
-    ops."""
-    return (tensors[0].device.type == "cuda"
-            and not any(tp.is_dt(t) for t in tensors)
+def untracked(*tensors: torch.Tensor) -> bool:
+    """Plain tensors (not DTensors) with no gradient to track, on any
+    device: what a kernel op takes (it has no backward and no sharding
+    rule)."""
+    return (not any(tp.is_dt(t) for t in tensors)
             and not (torch.is_grad_enabled()
                      and any(t.requires_grad for t in tensors)))
+
+
+def fuses(*tensors: torch.Tensor) -> bool:
+    """Whether the fused pointwise passes take these tensors: ``untracked``
+    ones on a CUDA device. The CPU, the meta device, DTensors and the
+    training forwards keep the plain ops."""
+    return tensors[0].device.type == "cuda" and untracked(*tensors)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

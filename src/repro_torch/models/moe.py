@@ -8,17 +8,24 @@ router logits, ties to the lower expert id as ``lax.top_k`` breaks them,
 softmax over the k values):
 
 * ``apply_moe_reference``: the JAX function of the same name. Every token
-  through every expert, the outputs combined in f32 with the top-k gates,
-  no capacity, no drops. The JAX reference builds (T, E, f) and (T, E, d)
-  intermediates; at full width that is gigabytes (arctic, 8 rows x 256
-  tokens: 2.5 GB each for the gate and up products, 7.5 GB for the f32
-  combine). Here the experts run in groups of ``group_size(T, cfg)`` whose
-  intermediates stay within ``GROUP_ELEMENTS``, and the combine accumulates
-  a (T, d) f32 sum. The shapes depend on T alone and nothing waits for the
-  card, so a step still captures as a CUDA graph: a decode step of 8
-  tokens runs each of arctic's matrices as one batched product over all
-  128 experts (reading every expert's weights once), a prefill of 8 x 256
-  tokens two experts at a time.
+  routed, each one's held picks combined in f32 with the top-k gates, no
+  capacity, no drops. The JAX reference runs every token through every
+  expert and builds (T, E, f) and (T, E, d) intermediates; at full width
+  that is gigabytes (arctic, 8 rows x 256 tokens: 2.5 GB each for the gate
+  and up products, 7.5 GB for the f32 combine). Where the op takes the
+  tensors (``layers.untracked``: no DTensor, no gradient) the experts run
+  through ``ops.moe_experts_op``, and rows that hold no request
+  (``Probe``'s live mask) take nothing: on the card routed, each held
+  expert multiplying only the live tokens that picked it, so a decode step
+  reads the tables of the experts its tokens touch and no others; on the
+  CPU its plain version. The training forwards and the sharded path keep
+  the dense dispatch (``_expert_sum``), as does the plain version: every
+  token through every held expert in groups of ``group_size(T, cfg)``
+  whose intermediates stay within ``GROUP_ELEMENTS``, the combine a (T, d)
+  f32 sum (zero weights add exactly, so both add the same products; past
+  two picks a token, in another order). Either way the shapes depend on T
+  alone and nothing waits for the card, so a step still captures as a
+  CUDA graph.
 * ``apply_moe_ep``: expert parallelism over a ``DeviceMesh``, per rank.
   Where JAX runs a ``shard_map`` body, each rank here runs the same body
   on its own batch rows (``x`` sharded over ``batch_axes``, replicated over
@@ -55,8 +62,10 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ref import held_combine
 from repro_torch.launch.mesh import axis_sizes
-from repro_torch.models import tp
+from repro_torch.models import layers, tp
 from repro_torch.models.layers import (ModelConfig, _activate, _dense_init,
                                       _normal)
 from repro_torch.tracing import span
@@ -180,37 +189,17 @@ def group_size(tokens: int, cfg: ModelConfig) -> int:
     """Experts computed together for ``tokens`` tokens: as many as keep a
     group's (G, T, max(d, f)) intermediate within ``GROUP_ELEMENTS``, at
     least one."""
-    per_expert = tokens * max(cfg.d_model, cfg.d_ff)
-    return max(1, min(cfg.num_experts, GROUP_ELEMENTS // max(1, per_expert)))
+    return ref.expert_group(tokens, cfg.num_experts, cfg.d_model, cfg.d_ff,
+                            GROUP_ELEMENTS)
 
 
 def _expert_sum(xt, w_gate, w_up, w_down, combine, n: int,
                 cfg: ModelConfig) -> torch.Tensor:
     """sum_e combine[:, e] * expert_e(xt) over the first ``n`` experts of
     the tables, in f32: (T, d). The products run in ``xt``'s dtype, in
-    groups of ``group_size(T, cfg)`` experts."""
-    t, d = xt.shape
-    out = torch.zeros((t, d), dtype=torch.float32, device=xt.device)
-    step = group_size(t, cfg)
-    for lo in range(0, n, step):
-        hi = min(lo + step, n)
-        g = _activate(torch.matmul(xt, w_gate[lo:hi]),
-                      cfg.mlp_activation)                     # (G, T, f)
-        u = torch.matmul(xt, w_up[lo:hi])
-        y = torch.matmul(g * u, w_down[lo:hi])                # (G, T, d)
-        w = combine[:, lo:hi].t()[:, :, None]                 # (G, T, 1)
-        out += (y.float() * w).sum(dim=0)
-    return out
-
-
-def held_combine(gates: torch.Tensor, ids: torch.Tensor,
-                 held: range) -> torch.Tensor:
-    """Each token's combine weight for each expert of ``held`` (global
-    ids), from its top-k ``gates`` and ``ids`` (T, k): (T, len(held)) f32,
-    a gate where the token picked that expert and 0 where it did not."""
-    mine = held.start + torch.arange(len(held), device=ids.device)
-    return torch.where(ids[:, :, None] == mine[None, None, :],
-                       gates[:, :, None], 0.0).sum(dim=1)
+    groups of ``group_size(T, cfg)`` experts (``ref.expert_sum``)."""
+    return ref.expert_sum(xt, w_gate, w_up, w_down, combine, n,
+                          cfg.mlp_activation, group_size(xt.shape[0], cfg))
 
 
 class Probe:
@@ -219,10 +208,14 @@ class Probe:
     it holds, and with ``timed`` a pair of timing CUDA events around each
     layer's expert products. The events are external, so a step captured
     as a CUDA graph records them as nodes of the graph, and every replay
-    times the products on the card's clock."""
+    times the products on the card's clock. ``live``, the (T,) bool mask
+    of the step's rows that a request reads: the experts give the others
+    nothing. None: every row is live."""
 
-    def __init__(self, timed: bool = False):
+    def __init__(self, timed: bool = False,
+                 live: Optional[torch.Tensor] = None):
         self.timed = timed
+        self.live = live
         self.routes: list = []
         self.events: list = []
 
@@ -247,10 +240,10 @@ _PROBE: Optional[Probe] = None
 
 
 @contextlib.contextmanager
-def probe(timed: bool = False):
+def probe(timed: bool = False, live: Optional[torch.Tensor] = None):
     """Open a ``Probe`` for the single-card MoE layers run inside."""
     global _PROBE
-    outer, _PROBE = _PROBE, Probe(timed)
+    outer, _PROBE = _PROBE, Probe(timed, live)
     try:
         yield _PROBE
     finally:
@@ -259,34 +252,48 @@ def probe(timed: bool = False):
 
 def apply_moe_reference(params, x: torch.Tensor,
                         cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, d). Dense dispatch, the JAX ``apply_moe_reference``'s
-    function: every token routed over every expert the router scores, and
-    through every held real expert (a padding expert's combine weight is
-    always 0, so it is skipped), the expert products in ``x``'s dtype, the
-    combine in f32, then the cast back and the shared expert. Where the
-    weights hold a share of the experts (``layers.ExpertShare``) the
-    result is the held experts' part alone: what one rank of expert
-    parallelism adds before the exchange sums the ranks."""
+    """x: (B, S, d). The JAX ``apply_moe_reference``'s function: every
+    token routed over every expert the router scores, each one's picks
+    among the held real experts (a padding expert is never picked) through
+    those experts, the products in ``x``'s dtype, the combine in f32, then
+    the cast back and the shared expert. Where the op takes the tensors
+    (``layers.untracked``) only the live rows' picks count
+    (``ops.moe_experts_op``; an open ``Probe``'s ``live``, else every row),
+    elsewhere the dense dispatch (``_expert_sum``). Where the weights hold
+    a share of the experts (``layers.ExpertShare``) the result is the held
+    experts' part alone: what one rank of expert parallelism adds before
+    the exchange sums the ranks."""
     b, s, d = x.shape
     held = cfg.expert_ids
+    n = len(held)
     e_tables = params["w_gate"].shape[0]
     xt = x.reshape(b * s, d)
     with span("repro_torch.moe.route"):
-        e_route = e_tables if len(held) == cfg.router_width \
-            else cfg.router_width
+        e_route = e_tables if n == cfg.router_width else cfg.router_width
         gates, ids = route(params["router"], xt, cfg.top_k, e_route)
-        combine = held_combine(gates, ids, range(held.start,
-                                                 held.start + e_tables))
     pr = _PROBE
     if pr is not None:
         pr.routes.append((ids, held))
+    routed = layers.untracked(xt, params["w_gate"])
+    live = pr.live if pr is not None else None
+    if live is not None and live.shape != (b * s,):
+        raise ValueError(f"apply_moe_reference: the probe's live mask "
+                         f"{tuple(live.shape)} is not the step's {b * s} rows")
     with span("repro_torch.moe.experts"):
         if pr is not None and pr.timed:
             pair = tuple(torch.cuda.Event(enable_timing=True, external=True)
                          for _ in range(2))
             pair[0].record()
-        out = _expert_sum(xt, params["w_gate"], params["w_up"],
-                          params["w_down"], combine, len(held), cfg)
+        if routed:
+            out = ops.moe_experts_op(
+                xt, params["w_gate"][:n], params["w_up"][:n],
+                params["w_down"][:n], gates, ids, live, held.start,
+                cfg.router_width, cfg.mlp_activation, GROUP_ELEMENTS)
+        else:
+            combine = held_combine(gates, ids, range(held.start,
+                                                     held.start + e_tables))
+            out = _expert_sum(xt, params["w_gate"], params["w_up"],
+                              params["w_down"], combine, n, cfg)
         if pr is not None and pr.timed:
             pair[1].record()
             pr.events.append(pair)

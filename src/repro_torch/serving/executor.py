@@ -278,11 +278,19 @@ class ExecutorKernels:
         """Batched bucketed prefill: gathers the ``slots`` rows, runs one
         padded ``prefill_chunk`` on them, scatters the rows back, and
         samples every row's next token on the device. A row's live tokens
-        are its first ``takes``; the rows that repeat row 0 are not live."""
+        are its first ``takes``; the MoE counts leave out the rows that
+        repeat row 0, while the experts run them as row 0 (their scatter
+        writes row 0's bytes again)."""
         idx = slots.long()
         view = {k: _bytes(a).index_select(1, idx).view(a.dtype)
                 for k, a in cache.items()}
-        with model_moe.probe(timed=events is not None) as pr:
+        taken = None
+        if self.api.cfg.is_moe:
+            cols = torch.arange(chunk.shape[1], device=chunk.device)
+            taken = cols[None, :] < takes[:, None]
+        with model_moe.probe(timed=events is not None,
+                             live=None if taken is None
+                             else taken.reshape(-1)) as pr:
             logits, view = self.api.prefill_chunk(params, view, chunk,
                                                   starts, take=takes)
         for k, a in cache.items():
@@ -292,19 +300,19 @@ class ExecutorKernels:
             return toks, cache
         rows = torch.arange(chunk.shape[0], device=chunk.device)
         first = (rows == 0) | (slots != slots[0])
-        cols = torch.arange(chunk.shape[1], device=chunk.device)
-        live = (cols[None, :] < takes[:, None]) & first[:, None]
+        live = taken & first[:, None]
         return self._counted(toks, pr, live.reshape(-1), events), cache
 
     def decode_fn(self, params, cache, tokens, lengths, events=None):
         """The decode step over every slot; its live rows are the slots
         that hold a request (length above 0)."""
-        with model_moe.probe(timed=events is not None) as pr:
+        live = lengths > 0 if self.api.cfg.is_moe else None
+        with model_moe.probe(timed=events is not None, live=live) as pr:
             logits, cache = self.api.decode(params, cache, tokens, lengths)
         toks = logits.argmax(dim=-1).to(torch.int32)
         if not pr.routes:
             return toks, cache
-        return self._counted(toks, pr, lengths > 0, events), cache
+        return self._counted(toks, pr, live, events), cache
 
     @staticmethod
     def _counted(toks, pr, live, events):
